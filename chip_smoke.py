@@ -1,26 +1,50 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (rsparse_tpu_torch) on one GPU.
 
-Drives the port's `lusol_serve` path once at full size and checks it:
+Drives the port's three kernel paths once each at full size and checks
+them:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
-  2. build: the C++ host engine (g++) and the SpTRSV kernel (nvcc, sm_90a),
-     both from this checkout's sources, with their build seconds;
-  3. kernel vs plain: the SpTRSV kernel against its plain torch version on
-     the card, kinds 0-3 (L and U of the matrix below, from the port's
-     `lu`), float32 and float64, B = 128 and B = 2, with both times;
-  4. main path: a nonsymmetric 5-point matrix on a 128 x 128 grid
-     (n = 16,384) made from --seed; `lusol_serve(A, 1, 1e-6,
+  2. build: the C++ host engine (g++) and the three CUDA kernels (nvcc,
+     sm_90a, one process per source, all started together), from this
+     checkout's sources, with their build seconds;
+  3. SpTRSV kernel vs plain: the SpTRSV kernel against its plain torch
+     version on the card, kinds 0-3 (L and U of the matrix below, from the
+     port's `lu`), float32 and float64, B = 128 and B = 2, with both times;
+     then the L+U pair's bound and a cuSPARSE triangular solve's time;
+  4. lusol_serve (main path 1): a nonsymmetric 5-point matrix on a 128 x 128
+     grid (n = 16,384) made from --seed; `lusol_serve(A, 1, 1e-6,
      device="cuda")` answers 4 requests of B[n, 128]; each answer is held
      to its residual and to the C++ engine's exact LU solves, the factor
      route must be the device multifrontal one, and the kernel launch count
-     of the run must be at least 2 per request.
+     of the run must be at least 2 per request;
+  5. DIA SpMV (main path 2): the 1024 x 1024 5-point Laplacian (n = 2^20),
+     `dia_plan` in float32 and float64; the kernel against its plain
+     version and against the C++ engine's gaxpy, its time beside its bound
+     and a cuSPARSE CSR SpMV; then the public `spmv(a, x)` once and a
+     50-step dependent chain through `spmv_fn`, as nnz/s beside the C++
+     engine's best of 5;
+  6. SpMM (main path 3): A = rand_csc(2^20, 2^20, 5.2M, seed 0), B = 128 in
+     float32 and float64 and B = 8 in float32; the kernel against its plain
+     version and, at B = 128, against 128 sequential C++ gaxpy calls; its
+     time beside its bound and a cuSPARSE CSR SpMM; then the public
+     `gaxpy_multi(a, X, device="cuda")` once.
 
+Every kernel's launch counter is set to 0 just before each main path and
+read just after it; a path whose kernel did not launch fails the run.
 Then it prints the kernels' JSON line and, last, the device line. Any
 failed check exits non-zero before the last line. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py [--seed 0]
+
+Kernel times are CUDA-event means; the DIA and SpMM phases evict the 50 MB
+L2 before every timed launch (their inputs would otherwise sit in it). A
+bound is the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s and its FLOPs over the
+card's rate outside the tensor cores (67 TFLOP/s float32, 34 TFLOP/s
+float64; NVIDIA's H100 SXM data sheet). The cuSPARSE calls are yardsticks
+only; the port never calls them.
 
 Float32 matmuls and cuDNN are held to full float32 (no TF32) so that the
 comparisons measure the algorithm, not the tensor-core rounding mode.
@@ -33,6 +57,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -40,6 +65,12 @@ GRID = 128  # n = GRID**2
 NRHS = 128
 REQUESTS = 4
 TOL = {"float32": 1e-4, "float64": 1e-12}  # kernel vs plain, relative
+NEW_TOL = {"float32": 1e-5, "float64": 1e-12}  # SpMM / DIA kernel vs plain
+DIA_GRID = 1024  # the JAX bench's DIA SpMV matrix (bench.py:585-621)
+SPMM_N, SPMM_NNZ = 1 << 20, 5_200_000  # its arbitrary pattern (bench.py:628-629)
+CHAIN = 50
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 class SmokeError(Exception):
@@ -93,6 +124,120 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean milliseconds of fn() by CUDA events around each run, each after
+    a 256 MiB write that evicts the L2 cache; one warm-up run first."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in evs:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in evs) / reps
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    """(least ms, what bounds it) for work moving nbytes and doing flops."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dname(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def counters():
+    """The three kernels' launch counters, by kernel name."""
+    from rsparse_tpu_torch.ops import spmv
+    from rsparse_tpu_torch.ops.spmm_cuda import spmm_csr
+    from rsparse_tpu_torch.ops.sptrsv_cuda import sptrsv_multi
+
+    return {"sptrsv_sweep": sptrsv_multi, "spmm_stream": spmm_csr,
+            "spmv_dia": spmv.dia_spmv}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def rel_err(got, ref) -> tuple:
+    """(max abs difference, that over max(1, max|ref|)) of two tensors."""
+    err = float((got.double() - ref.double()).abs().max())
+    return err, err / max(1.0, float(ref.double().abs().max()))
+
+
+def laplacian_5pt(g: int):
+    """5-point Laplacian on a g x g grid, CSC (the JAX bench's generator)."""
+    n = g * g
+    idx = np.arange(n, dtype=np.int64)
+    gx, gy = idx // g, idx % g
+    rows, cols, vals = [idx], [idx], [np.full(n, 4.0)]
+    for dx, dy in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        nx, ny = gx + dx, gy + dy
+        ok = (nx >= 0) & (nx < g) & (ny >= 0) & (ny < g)
+        rows.append((nx * g + ny)[ok])
+        cols.append(idx[ok])
+        vals.append(np.full(int(ok.sum()), -1.0))
+    r, c, v = np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+    order = np.lexsort((r, c))
+    p = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(c, minlength=n), out=p[1:])
+    return n, p, r[order], v[order]
+
+
+def rand_csc(m: int, n: int, nnz: int, seed: int):
+    """Uniform random pattern, duplicates merged (the JAX bench's generator)."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, m, nnz)
+    c = rng.integers(0, n, nnz)
+    k = np.unique(c * np.int64(m) + r)
+    c2 = k // m
+    r2 = (k % m).astype(np.int64)
+    v = rng.standard_normal(len(k))
+    p = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(c2, minlength=n), out=p[1:])
+    return p, r2, v
+
+
+def device_profile(fn, steps: int) -> str:
+    """Run fn() `steps` times under torch.profiler and summarize: host wall
+    and device busy time per step, the device's idle share, and the top
+    device activities by time (kernels, copies, fills)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    if not by_name:
+        return f"wall_us_per_step={wall_us / steps:.1f} device time not measured"
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return (f"wall_us_per_step={wall_us / steps:.1f} device_us_per_step="
+            f"{busy_us / steps:.1f} idle_share={1 - busy_us / wall_us:.3f} top="
+            + ";".join(f"{k[:48]}={v / steps:.1f}us" for k, v in top))
+
+
 def phase_kernels(a, seed: int, device: str = "cuda"):
     """Kernel vs plain version on the L and U factors of `a`."""
     import torch
@@ -130,7 +275,63 @@ def phase_kernels(a, seed: int, device: str = "cuda"):
                     # the serve handle's two sweeps per solve
                     main["ms"] += ms
                     main["plain_ms"] += plain
+    sweep_pair_yardsticks(a, nm, rng, main, device)
     return max_abs, main
+
+
+def sweep_pair_yardsticks(a, nm, rng, main: dict, device: str) -> None:
+    """The serve handle's L+U sweep pair (float32, B = NRHS): its bound from
+    the plans' streams, and the time of cuSPARSE's triangular solve
+    (`torch.triangular_solve` on CSR copies of L and U) for the same pair."""
+    import torch
+
+    from rsparse_tpu_torch import tri_plan
+    from rsparse_tpu_torch.ops.plan import transpose_plan
+    from rsparse_tpu_torch.ops.sptrsv_cuda import sptrsv_multi
+
+    n, nbytes, flops, levels = a.n, 0, 0, []
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    mats, plans = [], []
+    for t, kind in ((nm.l, 0), (nm.u, 1)):
+        plan = tri_plan(t, kind)
+        nent = int(plan.ent_off[-1])
+        # entries (value, row, column), columns (diagonal, id), level
+        # offsets, X read and X written
+        nbytes += (12 * nent + 8 * n + 8 * (plan.nlev + 1)
+                   + 2 * n * NRHS * 4)
+        flops += 2 * nent * NRHS + n * NRHS
+        levels.append(plan.nlev)
+        vals = t.x[: t.nnz()].to(torch.float32)
+        tp = transpose_plan(t)  # CSR of the CSC factor
+        mats.append(torch.sparse_csr_tensor(ix(tp.out_p), ix(tp.out_i),
+                                            vals[ix(tp.perm)], size=(n, n)))
+        plans.append((vals, plan, kind))
+    main["bound_ms"], main["bound_by"] = bound_ms(nbytes, flops, "float32")
+    X = torch.as_tensor(rng.standard_normal((n, NRHS)), dtype=torch.float32,
+                        device=device)
+
+    def lib_pair():
+        Z = torch.triangular_solve(X, mats[0], upper=False).solution
+        return torch.triangular_solve(Z, mats[1], upper=True).solution
+
+    try:
+        got = lib_pair()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        print(f"sptrsv library: no single torch call solves with a sparse "
+              f"CSR matrix here ({type(e).__name__}: {e})", flush=True)
+        main["library_ms"] = None
+        return
+    Z = X
+    for vals, plan, kind in plans:
+        Z = sptrsv_multi(vals, Z, plan, kind)
+    torch.cuda.synchronize()
+    _, rel = rel_err(got, Z)
+    main["library_ms"] = cuda_ms(lib_pair, 5)
+    print(f"sptrsv pair f32 B={NRHS}: levels={levels[0]}+{levels[1]} "
+          f"kernel_ms={main['ms']:.4f} bound_ms={main['bound_ms']:.5f} "
+          f"({main['bound_by']}) bound_share={main['bound_ms'] / main['ms']:.5f} "
+          f"library_ms={main['library_ms']:.4f} library_rel_diff={rel:.3e}",
+          flush=True)
 
 
 def host_solves(a, B: np.ndarray, factors):
@@ -157,14 +358,13 @@ def phase_main(a, seed: int, device: str = "cuda"):
 
     from rsparse_tpu_torch import lusol_serve, sqr
     from rsparse_tpu_torch.ops.plan import col_ids
-    from rsparse_tpu_torch.ops.sptrsv_cuda import sptrsv_multi
     from rsparse_tpu_torch.symbolic import native
 
     n, nz = a.n, a.nnz()
     rng = np.random.default_rng(seed + 2)
     requests = [rng.standard_normal((n, NRHS)) for _ in range(REQUESTS)]
 
-    sptrsv_multi.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     s = sqr(a, 1, False)
     t_an = time.perf_counter() - t0
@@ -177,7 +377,7 @@ def phase_main(a, seed: int, device: str = "cuda"):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         answers.append(X)
-    launches = sptrsv_multi.launches
+    launches = read_counts()["sptrsv_sweep"]
 
     bs = h.build_seconds
     print(f"main: n={n} nnz={nz} analysis_s={t_an:.4f} factor_s={bs['factor']:.4f} "
@@ -219,6 +419,207 @@ def phase_main(a, seed: int, device: str = "cuda"):
     return launches
 
 
+def phase_dia(seed: int, device: str = "cuda"):
+    """DIA SpMV on the 1024 x 1024 5-point Laplacian (n = 2^20): kernel vs
+    plain vs the C++ engine in float32 and float64, times and bound; then
+    the main path, the public `spmv` once and a 50-step chain."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs
+    from rsparse_tpu_torch.ops import spmv as sp
+    from rsparse_tpu_torch.ops.plan import transpose_plan
+    from rsparse_tpu_torch.symbolic import native
+
+    n, Ap, Ai, Ax = laplacian_5pt(DIA_GRID)
+    nnz = len(Ax)
+    a = Sprs(nnz, n, n, Ap, Ai, Ax)
+    x_h = np.random.default_rng(seed + 3).standard_normal(n)
+    zeros = np.zeros(n)
+    r_host = native.gaxpy_host(n, n, Ap, Ai, Ax, x_h, zeros)
+    cpu_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        native.gaxpy_host(n, n, Ap, Ai, Ax, x_h, zeros)
+        cpu_s.append(time.perf_counter() - t0)
+    host_scale = max(1.0, float(np.abs(r_host).max()))
+    tp = transpose_plan(a)
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    crow, ccol = ix(tp.out_p), ix(tp.out_i)
+    out, plans, max_abs = {}, {}, 0.0
+    for np_dt in (np.float32, np.float64):
+        t0 = time.perf_counter()
+        plan = sp.dia_plan(a, dtype=np_dt)
+        t_plan = time.perf_counter() - t0
+        dt = torch.float32 if np_dt == np.float32 else torch.float64
+        name = dname(dt)
+        dia = torch.as_tensor(plan.dia, device=device)
+        x = torch.as_tensor(x_h, dtype=dt, device=device)
+        plans[name] = (plan, dia, x)
+        got = sp.dia_spmv(dia, x, plan)
+        ref = sp.dia_spmv_plain(dia, x, plan)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        host_err = float(np.abs(got.double().cpu().numpy() - r_host).max())
+        check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (n,),
+              f"dia {name}: bad kernel output")
+        check(rel <= NEW_TOL[name],
+              f"dia {name}: kernel disagrees with the plain version: {rel:.3e}")
+        host_tol = 1e-3 if name == "float32" else 1e-12
+        check(host_err <= host_tol * host_scale,
+              f"dia {name}: kernel disagrees with the C++ engine: {host_err:.3e}")
+        max_abs = max(max_abs, err)
+        A_csr = torch.sparse_csr_tensor(crow, ccol, torch.as_tensor(
+            Ax[tp.perm], dtype=dt, device=device), size=(n, n))
+        _, lib_rel = rel_err(torch.mv(A_csr, x), ref)
+        ms = cuda_ms_cold(lambda: sp.dia_spmv(dia, x, plan), 20)
+        b2b = cuda_ms(lambda: sp.dia_spmv(dia, x, plan), 20)
+        plain = cuda_ms_cold(lambda: sp.dia_spmv_plain(dia, x, plan), 5)
+        lib = cuda_ms_cold(lambda: torch.mv(A_csr, x), 20)
+        K, item = len(plan.offsets), dia.element_size()
+        b, by = bound_ms(K * plan.rr * 128 * item + 4 * K + 2 * n * item,
+                         2 * K * n, name)
+        print(f"dia {name}: n={n} nnz={nnz} K={K} plan_s={t_plan:.3f} "
+              f"max_abs_err={err:.3e} rel_err={rel:.3e} "
+              f"host_abs_err={host_err:.3e} kernel_ms={ms:.5f} "
+              f"back_to_back_ms={b2b:.5f} plain_ms={plain:.5f} "
+              f"library_ms={lib:.5f} library_rel_diff={lib_rel:.3e} "
+              f"bound_ms={b:.5f} ({by}) bound_share={b / ms:.4f}", flush=True)
+        out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": b, "bound_by": by}
+
+    # main path: the public spmv, then a dependent chain through spmv_fn
+    plan, dia, x = plans["float32"]
+    f = sp.spmv_fn(plan)
+    reset_counts()
+    r = sp.spmv(a, x_h, plan, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur = x
+    for _ in range(CHAIN):
+        rr = f(dia, cur)
+        cur = rr / rr.abs().max()
+    checksum = float(cur.sum())
+    t_chain = (time.perf_counter() - t0) / CHAIN
+    counts = read_counts()
+    host_err = float(np.abs(r.double().cpu().numpy() - r_host).max())
+    print(f"dia main: spmv host_abs_err={host_err:.3e} chain_step_s="
+          f"{t_chain:.6f} chain_nnz_per_s={nnz / t_chain:.4e} "
+          f"host_engine_best_s={min(cpu_s):.6f} host_engine_nnz_per_s="
+          f"{nnz / min(cpu_s):.4e} launches={counts}", flush=True)
+    check(tuple(r.shape) == (n,) and host_err <= 1e-3 * host_scale,
+          f"dia main: spmv disagrees with the C++ engine: {host_err:.3e}")
+    check(np.isfinite(checksum), "dia main: chain checksum not finite")
+    check(counts["spmv_dia"] == CHAIN + 1,
+          f"dia main: {counts['spmv_dia']} kernel launches, not {CHAIN + 1}")
+
+    def step():
+        rr = f(dia, x)
+        return rr / rr.abs().max()
+
+    print(f"dia main profile (chain step, 10 steps): {device_profile(step, 10)}",
+          flush=True)
+    return out, max_abs, counts
+
+
+def phase_spmm(seed: int, device: str = "cuda"):
+    """Streaming SpMM on rand_csc(2^20, 2^20, 5.2M, seed 0): kernel vs plain
+    (float32 and float64 at B = 128, float32 at B = 8) and vs 128 C++ gaxpy
+    calls, times and bound; then the main path, `gaxpy_multi` once."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, gaxpy_multi
+    from rsparse_tpu_torch.ops.spmm_cuda import (spmm_csr, spmm_plain,
+                                                 spmm_plan_cached)
+    from rsparse_tpu_torch.symbolic import native
+
+    n = SPMM_N
+    Ap, Ai, Ax = rand_csc(n, n, SPMM_NNZ, seed=0)
+    nnz = len(Ax)
+    a = Sprs(nnz, n, n, Ap, Ai, Ax)
+    t0 = time.perf_counter()
+    plan = spmm_plan_cached(a)
+    t_plan = time.perf_counter() - t0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 4)
+    X64 = torch.randn((n, NRHS), generator=gen, dtype=torch.float64,
+                      device=device)
+    X64h = X64.cpu().numpy()
+    t0 = time.perf_counter()
+    Rh = np.empty((n, NRHS))
+    zeros = np.zeros(n)
+    for j in range(NRHS):
+        Rh[:, j] = native.gaxpy_host(n, n, Ap, Ai, Ax,
+                                     np.ascontiguousarray(X64h[:, j]), zeros)
+    t_cpp = time.perf_counter() - t0
+    Rh_d = torch.as_tensor(Rh, device=device)
+    host_scale = max(1.0, float(np.abs(Rh).max()))
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    perm, crow, ccol = ix(plan.perm), ix(plan.row_ptr), ix(plan.col_idx)
+    vals64 = torch.as_tensor(Ax, device=device)
+    out, max_abs = {}, 0.0
+    for dt, B in ((torch.float32, NRHS), (torch.float64, NRHS),
+                  (torch.float32, 8)):
+        name = dname(dt)
+        X = X64[:, :B].to(dt).contiguous()
+        vals = vals64.to(dt)
+        vals_csr = vals[perm]
+        got = spmm_csr(vals_csr, X, plan)
+        ref = spmm_plain(vals, X, plan)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        del ref
+        check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (n, B),
+              f"spmm {name} B={B}: bad kernel output")
+        check(rel <= NEW_TOL[name], f"spmm {name} B={B}: kernel disagrees "
+              f"with the plain version: {rel:.3e}")
+        host_rel = None
+        if B == NRHS:
+            host_rel = float((got.double() - Rh_d).abs().max()) / host_scale
+            host_tol = 1e-4 if name == "float32" else 1e-12
+            check(host_rel <= host_tol, f"spmm {name}: kernel disagrees with "
+                  f"the C++ engine's gaxpy: {host_rel:.3e}")
+        del got
+        torch.cuda.empty_cache()
+        max_abs = max(max_abs, err)
+        A_csr = torch.sparse_csr_tensor(crow, ccol, vals_csr, size=(n, n))
+        lib_out = torch.sparse.mm(A_csr, X)
+        _, lib_rel = rel_err(lib_out, spmm_csr(vals_csr, X, plan))
+        del lib_out
+        ms = cuda_ms_cold(lambda: spmm_csr(vals_csr, X, plan), 10)
+        plain = cuda_ms_cold(lambda: spmm_plain(vals, X, plan), 2)
+        torch.cuda.empty_cache()
+        lib = cuda_ms_cold(lambda: torch.sparse.mm(A_csr, X), 10)
+        item = X.element_size()
+        b, by = bound_ms(nnz * (item + 4) + 4 * (n + 1) + 2 * n * B * item,
+                         2 * nnz * B, name)
+        print(f"spmm {name} B={B}: n={n} nnz={nnz} plan_s={t_plan:.3f} "
+              f"max_abs_err={err:.3e} rel_err={rel:.3e} host_rel_err="
+              f"{host_rel if host_rel is None else format(host_rel, '.3e')} "
+              f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"library_rel_diff={lib_rel:.3e} bound_ms={b:.4f} ({by}) "
+              f"bound_share={b / ms:.4f}", flush=True)
+        out[(name, B)] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                          "bound_ms": b, "bound_by": by}
+        del X, vals, vals_csr, A_csr
+        torch.cuda.empty_cache()
+
+    # main path: the public gaxpy_multi on the card (float64, A's dtype)
+    reset_counts()
+    R = gaxpy_multi(a, X64, device=device)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    host_rel = float((R - Rh_d).abs().max()) / host_scale
+    print(f"spmm main: gaxpy_multi f64 B={NRHS} host_rel_err={host_rel:.3e} "
+          f"host_engine_128_gaxpy_s={t_cpp:.4f} launches={counts}", flush=True)
+    check(tuple(R.shape) == (n, NRHS) and host_rel <= 1e-12,
+          f"spmm main: gaxpy_multi disagrees with the C++ engine: {host_rel:.3e}")
+    check(counts["spmm_stream"] >= 1, "spmm main: the kernel did not launch")
+    del R
+    print("spmm main profile (gaxpy_multi, 3 calls): " + device_profile(
+        lambda: gaxpy_multi(a, X64, device=device), 3), flush=True)
+    return out, max_abs, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -229,9 +630,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    warnings.filterwarnings("ignore", message=".*[Ss]parse")  # beta CSR notes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from rsparse_tpu_torch.ops import sptrsv_cuda
+    from rsparse_tpu_torch.ops import cuda_build, spmm_cuda, spmv, sptrsv_cuda
     from rsparse_tpu_torch.symbolic import native
 
     smi = subprocess.run(
@@ -244,24 +646,39 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     native.load()
     t1 = time.perf_counter()
-    sptrsv_cuda.build()
+    secs = cuda_build.compile_all(["sptrsv", "spmm", "spmv_dia"])
+    for mod in (sptrsv_cuda, spmm_cuda, spmv):
+        mod.build()
     t2 = time.perf_counter()
-    print(f"build: host_engine_s={t1 - t0:.2f} sptrsv_kernel_s={t2 - t1:.2f} "
-          f"({sptrsv_cuda.SOURCE})", flush=True)
+    print(f"build: host_engine_s={t1 - t0:.2f} sptrsv_kernel_s="
+          f"{secs['sptrsv']:.2f} spmm_kernel_s={secs['spmm']:.2f} "
+          f"spmv_dia_kernel_s={secs['spmv_dia']:.2f} kernels_wall_s="
+          f"{t2 - t1:.2f} ({sptrsv_cuda.SOURCE}, {spmm_cuda.SOURCE}, "
+          f"{spmv.SOURCE})", flush=True)
 
     a = make_matrix(GRID, args.seed)
     try:
         max_abs, main_ms = phase_kernels(a, args.seed)
         launches = phase_main(a, args.seed)
+        dia, dia_err, dia_counts = phase_dia(args.seed)
+        spmm, spmm_err, spmm_counts = phase_spmm(args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [{
-        "name": "sptrsv_sweep", "route": "cuda",
-        "source": "rsparse_tpu_torch/csrc/sptrsv.cu",
-        "replaces": "rsparse_tpu/ops/sptrsv_pallas.py:191",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": main_ms["ms"], "plain_ms": main_ms["plain_ms"]}]}))
+    entry = lambda name, src, rep, n, err, t: dict(
+        name=name, route="cuda", source=f"rsparse_tpu_torch/csrc/{src}",
+        replaces=rep, launches=n, max_abs_err=err, ms=t["ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"])
+    print(json.dumps({"kernels": [
+        entry("sptrsv_sweep", "sptrsv.cu",
+              "rsparse_tpu/ops/sptrsv_pallas.py:191", launches, max_abs,
+              main_ms),
+        entry("spmm_stream", "spmm.cu", "rsparse_tpu/ops/spmm_pallas.py:105",
+              spmm_counts["spmm_stream"], spmm_err, spmm[("float64", NRHS)]),
+        entry("spmv_dia", "spmv_dia.cu", "rsparse_tpu/ops/spmv.py:194",
+              dia_counts["spmv_dia"], dia_err, dia["float32"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

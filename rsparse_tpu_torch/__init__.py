@@ -4,12 +4,17 @@ A second implementation of the sparse direct-solver framework, for one
 NVIDIA H100 (sm_90a), checked against the JAX package it is ported from.
 It imports torch and numpy, never jax or rsparse_tpu.
 
-Ported so far (the `lusol_serve` slice):
+Ported so far (the `lusol_serve` slice and the L2 operator slice):
   - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), and
     `convert` to build them from plain numpy fields.
-  - L2' ops: `ipvec`/`pvec`/`pinvert`, the permutation planners
-    (`ops.plan`), and the level-scheduled SpTRSV sweep (`ops.sptrsv_cuda`:
-    a hand-written CUDA kernel, with a plain torch twin for the CPU).
+  - L2' ops: `add`, `multiply`, `transpose`, `gaxpy`, `norm`, `scpmat`,
+    `scxmat`, `permute`, `symperm`, `fkeep`, `sprs_print`, `ipvec`/`pvec`/
+    `pinvert` and the `Sprs` operator overloads (host plans in `ops.plan`,
+    torch value passes in `ops.device`); `gaxpy_multi` on the streaming
+    SpMM (`ops.spmm_cuda`); the DIA SpMV and `spgemm_dia` (`ops.spmv`); the
+    level-scheduled SpTRSV sweep (`ops.sptrsv_cuda`). The three kernels
+    are hand-written CUDA (`csrc/`), each with a plain torch version for
+    the CPU.
   - L3' symbolic: `sqr`/`schol`/AMD/etree/postorder on the native C++
     engine, compiled from the JAX package's source at first use.
   - L4' factorization: `lu` — multifrontal LU with threshold pivoting
@@ -18,13 +23,30 @@ Ported so far (the `lusol_serve` slice):
   - L5' solvers: batched triangular solves (`*solve_multi`) and the
     `lusol_serve` handle (float32 sweeps + float64 refinement on device).
 
-The device-facing entry points take an explicit `device` argument.
+The device-facing entry points take an explicit `device` argument, which
+defaults to the card ("cuda").
 """
 
 from .config import config
 from .data import Sprs, Trpl, Symb, Nmrc
 from .errors import RsparseError, NotPositiveDefiniteError, NoPivotError
-from .ops import ipvec, pvec, pinvert
+from .ops import (
+    add,
+    multiply,
+    transpose,
+    gaxpy,
+    gaxpy_multi,
+    norm,
+    scpmat,
+    scxmat,
+    permute,
+    symperm,
+    ipvec,
+    pvec,
+    pinvert,
+    fkeep,
+    sprs_print,
+)
 from .solve import (
     TriPlan,
     tri_plan,
@@ -42,7 +64,9 @@ __all__ = [
     "config",
     "Sprs", "Trpl", "Symb", "Nmrc",
     "RsparseError", "NotPositiveDefiniteError", "NoPivotError",
-    "ipvec", "pvec", "pinvert",
+    "add", "multiply", "transpose", "gaxpy", "gaxpy_multi", "norm",
+    "scpmat", "scxmat", "permute", "symperm", "ipvec", "pvec", "pinvert",
+    "fkeep", "sprs_print",
     "TriPlan", "tri_plan",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
     "lusol_serve",

@@ -287,6 +287,69 @@ class Sprs:
             and np.array_equal(self.x, other.x)
         )
 
+    # -- operator overloads (src/data.rs:527-869); the ops' value passes run
+    # on their default device, the card ------------------------------------
+
+    def __add__(self, other):
+        from . import ops
+
+        if isinstance(other, Sprs):
+            return ops.add(self, other, 1.0, 1.0)
+        if isinstance(other, (int, float)):
+            return ops.scpmat(float(other), self)
+        return NotImplemented
+
+    def __radd__(self, other):
+        from . import ops
+
+        if isinstance(other, (int, float)):
+            return ops.scpmat(float(other), self)
+        return NotImplemented
+
+    def __sub__(self, other):
+        from . import ops
+
+        if isinstance(other, Sprs):
+            return ops.add(self, other, 1.0, -1.0)
+        if isinstance(other, (int, float)):
+            return ops.scpmat(-float(other), self)
+        return NotImplemented
+
+    def __rsub__(self, other):
+        from . import ops
+
+        if isinstance(other, (int, float)):
+            return ops.scpmat(float(other), ops.scxmat(-1.0, self))
+        return NotImplemented
+
+    def __mul__(self, other):
+        from . import ops
+
+        if isinstance(other, Sprs):
+            return ops.multiply(self, other)
+        if isinstance(other, (int, float)):
+            return ops.scxmat(float(other), self)
+        return NotImplemented
+
+    def __rmul__(self, other):
+        from . import ops
+
+        if isinstance(other, (int, float)):
+            return ops.scxmat(float(other), self)
+        return NotImplemented
+
+    def __truediv__(self, other):
+        from . import ops
+
+        if isinstance(other, (int, float)):
+            return ops.scxmat(1.0 / float(other), self)
+        return NotImplemented
+
+    def __neg__(self):
+        from . import ops
+
+        return ops.scxmat(-1.0, self)
+
 
 class Trpl:
     """Triplet (COO) builder (reference: src/data.rs:877-1011)."""

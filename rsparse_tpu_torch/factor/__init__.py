@@ -19,7 +19,7 @@ from .lu_device import lu_device
 __all__ = ["lu"]
 
 
-def lu(a: Sprs, s: Symb, tol: float, *, device="cpu") -> Nmrc:
+def lu(a: Sprs, s: Symb, tol: float, *, device="cuda") -> Nmrc:
     """(L,U,pinv) = lu(A) given `sqr` analysis (reference src/lib.rs:519-622).
 
     Factors in float64 on `device`; L and U values come back as tensors on
@@ -29,7 +29,7 @@ def lu(a: Sprs, s: Symb, tol: float, *, device="cpu") -> Nmrc:
     >>> from rsparse_tpu_torch import Sprs, sqr
     >>> from rsparse_tpu_torch.factor import lu
     >>> a = Sprs.new_from_vec([[1.0, 3.0], [2.0, 4.0]])
-    >>> nm = lu(a, sqr(a, -1, False), 1.0)  # tol=1: strict partial pivot
+    >>> nm = lu(a, sqr(a, -1, False), 1.0, device="cpu")  # tol=1: strict pivot
     >>> [int(v) for v in nm.pinv]  # row 1 (|2| > |1|) pivots first
     [1, 0]
     """

@@ -14,9 +14,9 @@ replaces the TPU kernel `rsparse_tpu/ops/sptrsv_pallas.py::_sweep_call`
     (a Python loop over levels with `index_add_`), which the CPU tests use
     and which the chip check compares the kernel with.
 
-The kernel is compiled with nvcc from the one source at first use, into the
-package's gitignored build directory, under a name keyed on the source's
-hash. Nothing here imports or builds anything at import time.
+The kernel is compiled with nvcc from the one source at first use
+(`cuda_build`), into the package's gitignored build directory, under a name
+keyed on the source's hash. Nothing is built at import time.
 
 Streams derived from the plan (`_streams`): per level offsets eoff/coff,
 entry rows erow, entry columns ecol (scatter kinds) or slots eslot (gather
@@ -29,56 +29,27 @@ was on the TPU.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from typing import Optional
 
 import torch
 
+from . import cuda_build
 from .plan import device_cache
 
 __all__ = ["sptrsv_multi", "sptrsv_plain_multi", "build"]
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.normpath(os.path.join(_HERE, "..", "csrc", "sptrsv.cu"))
-BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
-
-_LIB: Optional[ctypes.CDLL] = None
+SOURCE = cuda_build.source("sptrsv")
 
 
-def _nvcc() -> str:
-    cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                          "bin", "nvcc"), shutil.which("nvcc")]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: the SpTRSV kernel cannot be built")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"libsptrsv_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.check_call([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE])
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.sptrsv_sweep_f32, lib.sptrsv_sweep_f64):
         fn.argtypes = [i, p, p, p, p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
-    _LIB = lib
-    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    return cuda_build.load("sptrsv", _declare)
 
 
 def _streams(plan, device: torch.device) -> dict:

@@ -106,15 +106,22 @@ def tri_plan(t: Sprs, kind: int) -> TriPlan:
 # ---------------------------------------------------------------------------
 
 
+def _sweep_device(X, device) -> torch.device:
+    """Where a batched solve runs: `device` when given, else X's device when
+    X is a tensor, else the card."""
+    if device is None:
+        device = X.device if isinstance(X, torch.Tensor) else "cuda"
+    return torch.device(device)
+
+
 def _tri_solve_multi(t: Sprs, X, kind: int, plan: Optional[TriPlan] = None,
                      device=None) -> torch.Tensor:
     """Batched dense-RHS triangular solve of X [n, B] in the factor's dtype.
 
     `device`: where the sweep runs; None = X's device when X is a tensor,
-    else the CPU. Returns the solved [n, B] tensor on that device."""
+    else the card. Returns the solved [n, B] tensor on that device."""
     p = plan or tri_plan(t, kind)
-    if device is None:
-        device = X.device if isinstance(X, torch.Tensor) else "cpu"
+    device = _sweep_device(X, device)
     tx = torch.as_tensor(t.x[: t.nnz()], device=device)
     Xt = torch.as_tensor(X, device=device).to(tx.dtype)
     return sptrsv_multi(tx, Xt, p, kind)
@@ -210,7 +217,7 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
 
 
 def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
-                sym: Optional[Symb] = None, refine: int = 8, device="cpu"):
+                sym: Optional[Symb] = None, refine: int = 8, device="cuda"):
     """Device-resident batched LU solve handle: `h(B[n, nrhs]) -> X` with
     lusol semantics (reference src/lib.rs:672-683: P from partial pivoting,
     Q from the fill-reducing column ordering).

@@ -43,7 +43,8 @@ def test_port_imports_no_jax():
     a fresh interpreter: this test process has both loaded)."""
     import subprocess
 
-    code = ("import sys, rsparse_tpu_torch, rsparse_tpu_torch.factor.frontal_lu;"
+    code = ("import sys, rsparse_tpu_torch, rsparse_tpu_torch.factor.frontal_lu,"
+            " rsparse_tpu_torch.ops.spmv, rsparse_tpu_torch.ops.spmm_cuda;"
             "assert 'jax' not in sys.modules, 'jax';"
             "assert 'rsparse_tpu' not in sys.modules, 'rsparse_tpu'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -43,7 +43,7 @@ def _both_lu(d, order, tol=1e-6):
     at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
     st = symb_from_fields(q=sj.q, lnz=sj.lnz, unz=sj.unz)
     nj = rs.lu(aj, sj, tol)
-    nt = rt.lu(at, st, tol)
+    nt = rt.lu(at, st, tol, device="cpu")
     return (aj, sj, nj), (at, st, nt)
 
 
@@ -109,7 +109,7 @@ def test_level_path_dense_tail(monkeypatch):
     d = _unsym(12, 3)
     a = rt.Sprs.new_from_vec(d)
     s = rt.sqr(a, -1, False)
-    nm = rt.lu(a, s, 1e-6)
+    nm = rt.lu(a, s, 1e-6, device="cpu")
     assert s._lu_route == "device_level" and s.plan.tail.cut == 0
     L = rt.Sprs(nm.l.nnz(), a.n, a.n, nm.l.p, nm.l.i, nm.l.x.numpy()).to_dense_np()
     U = rt.Sprs(nm.u.nnz(), a.n, a.n, nm.u.p, nm.u.i, nm.u.x.numpy()).to_dense_np()
@@ -132,7 +132,7 @@ def test_backend_host_matches(monkeypatch):
     monkeypatch.setattr(rt.config, "backend", "host")
     d = _unsym(5, 4)
     at = rt.Sprs.new_from_vec(d)
-    nm = rt.lu(at, rt.sqr(at, 1, False), 1e-6)
+    nm = rt.lu(at, rt.sqr(at, 1, False), 1e-6, device="cpu")
     assert isinstance(nm.l.x, torch.Tensor) and nm.l.x.dtype == torch.float64
 
 
@@ -171,7 +171,7 @@ def test_level_path_duplicate_entries(monkeypatch):
     assert a.nnz() > np.count_nonzero(d)  # duplicates are stored
     np.testing.assert_allclose(a.to_dense_np(), d, atol=1e-15)
     s = rt.sqr(a, -1, False)
-    nm = rt.lu(a, s, 1e-6)
+    nm = rt.lu(a, s, 1e-6, device="cpu")
     assert s._lu_route == "device_level"
     L = rt.Sprs(nm.l.nnz(), n, n, nm.l.p, nm.l.i, nm.l.x.numpy()).to_dense_np()
     U = rt.Sprs(nm.u.nnz(), n, n, nm.u.p, nm.u.i, nm.u.x.numpy()).to_dense_np()

@@ -39,7 +39,7 @@ def test_lusol_serve_matches_jax_and_dense(monkeypatch):
     at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
     B = np.random.default_rng(6).standard_normal((aj.n, 8))
     Xj = np.asarray(rs.lusol_serve(aj, 1, 1e-6)(B), np.float64)
-    h = rt.lusol_serve(at, 1, 1e-6)
+    h = rt.lusol_serve(at, 1, 1e-6, device="cpu")
     assert h.factor_route == "device_mf"
     assert not getattr(h.sym, "_static_rejected", False)
     Xt = h(B)
@@ -63,7 +63,7 @@ def test_lusol_serve_level_path_and_natural_order():
     B = np.random.default_rng(9).standard_normal((a.n, 3))
     want = np.linalg.solve(d, B)
     for order in (-1, 1):
-        h = rt.lusol_serve(a, order, 1e-6)
+        h = rt.lusol_serve(a, order, 1e-6, device="cpu")
         X = h(B).numpy()
         assert np.abs(X - want).max() / max(1.0, np.abs(want).max()) < 1e-10
 
@@ -86,4 +86,4 @@ def test_lusol_serve_singular_raises():
     with pytest.raises(rs.NoPivotError):
         rs.lusol_serve(aj, 1, 1e-6)
     with pytest.raises(rt.NoPivotError):
-        rt.lusol_serve(at, 1, 1e-6)
+        rt.lusol_serve(at, 1, 1e-6, device="cpu")

@@ -64,7 +64,7 @@ def test_sweep_f64_matches_xla(kind):
     tj, tt = _tri(kind)
     X = np.random.default_rng(10 + kind).standard_normal((tj.n, 7))
     ref = np.asarray(tri_solve_jax(tj, X, kind))
-    got = rt.solve._tri_solve_multi(tt, X, kind)
+    got = rt.solve._tri_solve_multi(tt, X, kind, device="cpu")
     assert got.dtype == torch.float64
     assert _rel(got.numpy(), ref) < 1e-12
 
@@ -79,7 +79,7 @@ def test_multi_wrappers_and_dense_oracle():
     B = np.random.default_rng(3).standard_normal((n, 4))
     for fn, mat, M in ((rt.lsolve_multi, lt, Ld), (rt.usolve_multi, ut, Ud),
                        (rt.ltsolve_multi, lt, Ld.T), (rt.utsolve_multi, ut, Ud.T)):
-        X = fn(mat, B).numpy()
+        X = fn(mat, B, device="cpu").numpy()
         assert np.abs(M @ X - B).max() < 1e-12
 
 
@@ -96,5 +96,5 @@ def test_wrapper_rejects_mismatch():
 def test_cpu_path_counts_no_launch():
     _, tt = _tri(1)
     before = sptrsv_multi.launches
-    rt.usolve_multi(tt, np.ones((tt.n, 3)))
+    rt.usolve_multi(tt, np.ones((tt.n, 3)), device="cpu")
     assert sptrsv_multi.launches == before
