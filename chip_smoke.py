@@ -8,16 +8,20 @@ them:
   2. build: the C++ host engine (g++) and the three CUDA kernels (nvcc,
      sm_90a, one process per source, all started together), from this
      checkout's sources, with their build seconds;
-  3. SpTRSV kernel vs plain: the SpTRSV kernel against its plain torch
-     version on the card, kinds 0-3 (L and U of the matrix below, from the
-     port's `lu`), float32 and float64, B = 128 and B = 2, with both times;
-     then the L+U pair's bound and a cuSPARSE triangular solve's time;
+  3. SpTRSV kernel vs plain: for kinds 0-3 (L and U of the matrix below,
+     from the port's `lu`) each plan's schedule (levels, the dense block
+     and its panels, the variant), then the kernel against its plain torch
+     version on the card in float32 and float64, B = 128 and B = 2, with
+     both times; the global-memory variant on a synthetic triangle with
+     n = 70,000 (kinds 0-3, both types); then the L+U pair's bound and a
+     cuSPARSE triangular solve's time;
   4. lusol_serve (main path 1): a nonsymmetric 5-point matrix on a 128 x 128
      grid (n = 16,384) made from --seed; `lusol_serve(A, 1, 1e-6,
      device="cuda")` answers 4 requests of B[n, 128]; each answer is held
      to its residual and to the C++ engine's exact LU solves, the factor
      route must be the device multifrontal one, and the kernel launch count
-     of the run must be at least 2 per request;
+     of the run must be at least 2 per request; then a profile of two
+     requests (sweeps against the refinement loop);
   5. DIA SpMV (main path 2): the 1024 x 1024 5-point Laplacian (n = 2^20),
      `dia_plan` in float32 and float64; the kernel against its plain
      version and against the C++ engine's gaxpy, its time beside its bound
@@ -66,6 +70,7 @@ NRHS = 128
 REQUESTS = 4
 TOL = {"float32": 1e-4, "float64": 1e-12}  # kernel vs plain, relative
 NEW_TOL = {"float32": 1e-5, "float64": 1e-12}  # SpMM / DIA kernel vs plain
+GLOBAL_N = 70_000  # a triangle too large for an X column in shared memory
 DIA_GRID = 1024  # the JAX bench's DIA SpMV matrix (bench.py:585-621)
 SPMM_N, SPMM_NNZ = 1 << 20, 5_200_000  # its arbitrary pattern (bench.py:628-629)
 CHAIN = 50
@@ -107,6 +112,40 @@ def make_matrix(grid: int, seed: int):
     p = np.zeros(n + 1, dtype=np.int64)
     np.cumsum(np.bincount(c, minlength=n), out=p[1:])
     return Sprs(len(v), n, n, p, r[order], v[order])
+
+
+def synthetic_triangle(n: int, k: int, seed: int):
+    """(L, U): a lower triangle of n columns, diagonal first, with entries
+    at rows j+s and j+2s+1 (s = (n-k)//10 + 1, so ~20 levels) of each
+    column j < n-k and a fully dense last block of k columns; U carries L's
+    transposed pattern (diagonal last, the block first in its solve, with
+    entries into rows outside it) and its own values. Diagonals dominate
+    their columns. Returns the port's Sprs."""
+    from rsparse_tpu_torch import Sprs
+
+    rng = np.random.default_rng(seed)
+    j = np.arange(n - k, dtype=np.int64)
+    step = (n - k) // 10 + 1
+    rows = [j + step, j + 2 * step + 1]
+    cols = [j, j]
+    tri = np.tril_indices(k, -1)
+    rows.append(n - k + tri[0])
+    cols.append(n - k + tri[1])
+    r, c = np.concatenate(rows), np.concatenate(cols)
+    ok = r < n
+    r, c = r[ok], c[ok]
+    mats = []
+    for rr, cc in ((r, c), (c, r)):
+        v = rng.uniform(0.2, 0.3, len(rr)) * rng.choice([-1.0, 1.0], len(rr))
+        idx = np.arange(n, dtype=np.int64)
+        diag = 1.0 + np.bincount(cc, np.abs(v), n)
+        rr, cc, v = (np.concatenate([rr, idx]), np.concatenate([cc, idx]),
+                     np.concatenate([v, diag]))
+        order = np.lexsort((rr, cc))
+        p = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(cc, minlength=n), out=p[1:])
+        mats.append(Sprs(len(v), n, n, p, rr[order], v[order]))
+    return mats[0], mats[1]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -239,18 +278,28 @@ def device_profile(fn, steps: int) -> str:
 
 
 def phase_kernels(a, seed: int, device: str = "cuda"):
-    """Kernel vs plain version on the L and U factors of `a`."""
+    """The SpTRSV kernel on the L and U factors of `a`: each plan's
+    schedule, kernel vs plain version (kinds 0-3, float32 and float64,
+    B = 128 and 2), then the global-memory variant on a large triangle and
+    the serve pair's yardsticks."""
     import torch
 
     from rsparse_tpu_torch import lu, sqr, tri_plan
-    from rsparse_tpu_torch.ops.sptrsv_cuda import sptrsv_multi, sptrsv_plain_multi
+    from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config, sptrsv_multi,
+                                                   sptrsv_plain_multi)
 
     nm = lu(a, sqr(a, 1, False), 1e-6, device=device)
     rng = np.random.default_rng(seed + 1)
-    max_abs, main = 0.0, {"ms": 0.0, "plain_ms": 0.0}
+    max_abs, main = 0.0, {"ms": 0.0, "plain_ms": 0.0, "sweep_ms": []}
     for kind in (0, 1, 2, 3):
         t = nm.l if kind in (0, 2) else nm.u
+        t0 = time.perf_counter()
         plan = tri_plan(t, kind)
+        t1 = time.perf_counter()
+        _ = plan.dense  # the split, found at its first read
+        secs = (t1 - t0, time.perf_counter() - t1)
+        print_schedule(plan, kind, launch_config(plan, torch.float32, device),
+                       secs)
         for dtype in (torch.float32, torch.float64):
             tx = t.x[: t.nnz()].to(dtype)
             for B in (NRHS, 2):
@@ -259,14 +308,15 @@ def phase_kernels(a, seed: int, device: str = "cuda"):
                 got = sptrsv_multi(tx, X, plan, kind)
                 ref = sptrsv_plain_multi(tx, X, plan, kind)
                 torch.cuda.synchronize()
-                err = float((got - ref).abs().max())
-                rel = err / max(1.0, float(ref.abs().max()))
-                ms = cuda_ms(lambda: sptrsv_multi(tx, X, plan, kind), 5)
+                err, rel = rel_err(got, ref)
+                # timed as the serve chain calls it: X^T out, no copy back
+                ms = cuda_ms(lambda: sptrsv_multi(tx, X, plan, kind,
+                                                  contiguous=False), 5)
                 plain = cuda_ms(lambda: sptrsv_plain_multi(tx, X, plan, kind), 2)
-                name = str(dtype).replace("torch.", "")
-                print(f"kernel kind={kind} {name} B={B} nlev={plan.nlev}: "
-                      f"max_abs_err={err:.3e} rel_err={rel:.3e} "
-                      f"kernel_ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
+                name = dname(dtype)
+                print(f"kernel kind={kind} {name} B={B}: max_abs_err={err:.3e} "
+                      f"rel_err={rel:.3e} kernel_ms={ms:.4f} "
+                      f"plain_ms={plain:.4f}", flush=True)
                 check(bool(torch.isfinite(got).all()), "kernel output not finite")
                 check(rel <= TOL[name], f"kernel kind={kind} {name} B={B} "
                       f"disagrees with the plain version: {rel:.3e}")
@@ -275,8 +325,68 @@ def phase_kernels(a, seed: int, device: str = "cuda"):
                     # the serve handle's two sweeps per solve
                     main["ms"] += ms
                     main["plain_ms"] += plain
+                    main["sweep_ms"].append(ms)
+    max_abs = max(max_abs, phase_global_variant(seed, device))
     sweep_pair_yardsticks(a, nm, rng, main, device)
     return max_abs, main
+
+
+def print_schedule(plan, kind: int, cfg: dict, secs=None) -> None:
+    """One line: the level count of the whole schedule and the kernel's
+    schedule (sparse levels, dense block size, panels, place, outside
+    entries, the most entries in one sparse level) with the kernel's
+    variant in float32; with `secs`, the host seconds of the level
+    schedule and of the dense split."""
+    d = plan.dense
+    host = (f"plan_s={secs[0]:.4f} split_s={secs[1]:.4f} "
+            if secs is not None else "")
+    print(f"schedule kind={kind}: {host}n={plan.n} levels={plan.nlev} "
+          f"sparse_levels={d.rest.nlev if d else plan.nlev} "
+          f"dense_k={d.k if d else 0} panels={-(-d.k // 32) if d else 0} "
+          f"block={('first' if d.first else 'last') if d else 'none'} "
+          f"outside_entries={len(d.out_pos) if d else 0} "
+          f"sparse_emax={d.rest.emax if d else plan.emax} "
+          f"variant={cfg['variant']}", flush=True)
+
+
+def phase_global_variant(seed: int, device: str = "cuda") -> float:
+    """The kernel's global-memory variant, kinds 0-3 in float32 and float64
+    at B = NRHS, on synthetic_triangle(GLOBAL_N, 96): n is too large for an
+    X column in shared memory. Returns the largest absolute difference."""
+    import torch
+
+    from rsparse_tpu_torch import tri_plan
+    from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config, sptrsv_multi,
+                                                   sptrsv_plain_multi)
+
+    lo, up = synthetic_triangle(GLOBAL_N, 96, seed)
+    rng = np.random.default_rng(seed + 5)
+    max_abs = 0.0
+    for kind in (0, 1, 2, 3):
+        t = lo if kind in (0, 2) else up
+        plan = tri_plan(t, kind)
+        cfg = launch_config(plan, torch.float32, device)
+        print_schedule(plan, kind, cfg)
+        check(cfg["variant"] == "global", f"global variant: n = {t.n} took "
+              f"the {cfg['variant']} variant")
+        for dtype in (torch.float32, torch.float64):
+            tx = torch.as_tensor(t.x[: t.nnz()], dtype=dtype, device=device)
+            X = torch.as_tensor(rng.standard_normal((t.n, NRHS)), dtype=dtype,
+                                device=device)
+            got = sptrsv_multi(tx, X, plan, kind)
+            ref = sptrsv_plain_multi(tx, X, plan, kind)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            ms = cuda_ms(lambda: sptrsv_multi(tx, X, plan, kind), 3)
+            name = dname(dtype)
+            print(f"global variant kind={kind} {name} B={NRHS}: "
+                  f"max_abs_err={err:.3e} rel_err={rel:.3e} kernel_ms={ms:.4f}",
+                  flush=True)
+            check(bool(torch.isfinite(got).all()) and rel <= TOL[name],
+                  f"global variant kind={kind} {name} disagrees with the "
+                  f"plain version: {rel:.3e}")
+            max_abs = max(max_abs, err)
+    return max_abs
 
 
 def sweep_pair_yardsticks(a, nm, rng, main: dict, device: str) -> None:
@@ -295,9 +405,12 @@ def sweep_pair_yardsticks(a, nm, rng, main: dict, device: str) -> None:
     for t, kind in ((nm.l, 0), (nm.u, 1)):
         plan = tri_plan(t, kind)
         nent = int(plan.ent_off[-1])
-        # entries (value, row, column), columns (diagonal, id), level
-        # offsets, X read and X written
-        nbytes += (12 * nent + 8 * n + 8 * (plan.nlev + 1)
+        d = plan.dense
+        nblk = d.k * (d.k - 1) // 2 if d is not None else 0
+        # off-diagonal entries (value and row index; in the dense block the
+        # value only, its place implied), columns (diagonal value, column
+        # pointer), X read and X written
+        nbytes += (8 * (nent - nblk) + 4 * nblk + 8 * n
                    + 2 * n * NRHS * 4)
         flops += 2 * nent * NRHS + n * NRHS
         levels.append(plan.nlev)
@@ -328,8 +441,10 @@ def sweep_pair_yardsticks(a, nm, rng, main: dict, device: str) -> None:
     _, rel = rel_err(got, Z)
     main["library_ms"] = cuda_ms(lib_pair, 5)
     print(f"sptrsv pair f32 B={NRHS}: levels={levels[0]}+{levels[1]} "
-          f"kernel_ms={main['ms']:.4f} bound_ms={main['bound_ms']:.5f} "
-          f"({main['bound_by']}) bound_share={main['bound_ms'] / main['ms']:.5f} "
+          f"kernel_ms={main['ms']:.4f} (L {main['sweep_ms'][0]:.4f}, U "
+          f"{main['sweep_ms'][1]:.4f}) bound_ms={main['bound_ms']:.5f} "
+          f"({main['bound_by']}, {nbytes} bytes) "
+          f"bound_share={main['bound_ms'] / main['ms']:.5f} "
           f"library_ms={main['library_ms']:.4f} library_rel_diff={rel:.3e}",
           flush=True)
 
@@ -416,6 +531,9 @@ def phase_main(a, seed: int, device: str = "cuda"):
         check(res <= 1e-10 * max(1.0, float(np.abs(B).max())),
               f"request {k}: residual {res:.3e} over bound")
         check(dev <= 1e-8, f"request {k}: differs from the host engine by {dev:.3e}")
+    B0 = torch.as_tensor(requests[0], device=device)
+    print("main profile (2 requests): " + device_profile(lambda: h(B0), 2),
+          flush=True)
     return launches
 
 

@@ -248,9 +248,7 @@ def _build_lu_tail(n, cut, Lp, Li, Up, Ui, akeys_s, aorder, lcols):
     np.cumsum(np.bincount(lcols[sub], minlength=cut), out=nn_p[1:])
     lnn = Sprs(len(sub), cut, cut, nn_p, Li[sub], np.zeros(len(sub)))
     tp = tri_plan(lnn, 0)
-    tri = dataclasses.replace(
-        tp, ent_pos=sub[tp.ent_pos].astype(np.int32),
-        col_diag=sub[tp.col_diag].astype(np.int32))
+    tri = tp.remap_positions(sub)
     i_grid = np.arange(cut, dtype=np.int64)[:, None]
     t_grid = (cut + np.arange(D, dtype=np.int64))[None, :]
     ant_pos = _lookup(akeys_s, aorder, t_grid * np.int64(n) + i_grid)

@@ -14,8 +14,9 @@ Conventions preserved from the reference:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -26,7 +27,7 @@ from .ops.sptrsv_cuda import sptrsv_multi
 from .symbolic import native
 
 __all__ = [
-    "TriPlan", "tri_plan",
+    "TriPlan", "DenseSplit", "tri_plan",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
     "lusol_serve",
 ]
@@ -35,6 +36,37 @@ __all__ = [
 # ---------------------------------------------------------------------------
 # Level-scheduled SpTRSV plans
 # ---------------------------------------------------------------------------
+
+
+# Smallest dense block that `tri_plan` solves as one super-level (columns).
+DENSE_MIN = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseSplit:
+    """A fully dense triangle D of the solve's dependency DAG, solved as one
+    super-level ahead of (`first`) or after the other columns' levels.
+
+    D is closed under predecessors when it goes first and under successors
+    when it goes last, so the other columns' levels (`rest`, a level
+    schedule over the columns outside D) never wait on it mid-way."""
+
+    k: int  # |D|
+    first: bool
+    cols: np.ndarray  # [k] D's columns in solve order
+    diag: np.ndarray  # [k] diagonal positions in T.x, in solve order
+    # the strict triangle, k(k-1)/2 entries:
+    #   x[cols[dst]] -= T.x[pos] * x[cols[src]]
+    tri_pos: np.ndarray
+    tri_dst: np.ndarray  # solve-order index, > tri_src
+    tri_src: np.ndarray
+    # D's entries into rows outside D: after the triangle in the scatter
+    # form (x[row] -= v * x[cols[idx]]), before it in the gather form
+    # (x[cols[idx]] -= v * x[row])
+    out_pos: np.ndarray
+    out_row: np.ndarray
+    out_idx: np.ndarray
+    rest: "TriPlan"  # level schedule of the columns outside D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,37 +86,55 @@ class TriPlan:
     col_id: np.ndarray  # columns sorted by level
     col_diag: np.ndarray  # diag position in T.x per sorted column
     col_off: np.ndarray  # [nlev+1] level offsets into col_*
+    # computes `dense` at its first use (None: the plan has no split)
+    split: Optional[Callable[[], Optional[DenseSplit]]] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @functools.cached_property
+    def dense(self) -> Optional[DenseSplit]:
+        """The dense block as one super-level, and the other columns
+        re-levelled (None: no dense block of DENSE_MIN columns; the levels
+        above are the whole schedule). Found at first use, so that the
+        plain level loop never pays for it."""
+        return self.split() if self.split is not None else None
+
+    def remap_positions(self, pos: np.ndarray) -> "TriPlan":
+        """The same plan with every position into T.x mapped through `pos`
+        (for a factor stored inside a larger value array)."""
+        m = lambda a: pos[a].astype(np.int32)
+
+        def split():
+            d = self.dense
+            return None if d is None else dataclasses.replace(
+                d, diag=m(d.diag), tri_pos=m(d.tri_pos), out_pos=m(d.out_pos),
+                rest=d.rest.remap_positions(pos))
+
+        return dataclasses.replace(self, ent_pos=m(self.ent_pos),
+                                   col_diag=m(self.col_diag), split=split)
 
 
-def tri_plan(t: Sprs, kind: int) -> TriPlan:
-    """kind: 0=lsolve, 1=usolve (scatter form), 2=ltsolve, 3=utsolve (gather)."""
-    n = t.n
-    nz = t.nnz()
-    lev = native.tri_levels(n, t.p, t.i[:nz], kind)
-    nlev = int(lev.max()) + 1 if n else 1
-    corder = np.argsort(lev, kind="stable")
+def _schedule(n: int, lev: np.ndarray, cols: np.ndarray, diag_pos, pos,
+              erows, ecols) -> TriPlan:
+    """Level schedule of the columns `cols` (ascending) at levels lev[cols]
+    (compacted to 0..nlev-1), with the off-diagonal entries (pos, erows,
+    ecols) of those columns grouped by the level of their column."""
+    uniq, clev = np.unique(lev[cols], return_inverse=True)
+    nlev = max(len(uniq), 1)
+    lv = np.zeros(n, dtype=np.int64)
+    lv[cols] = clev
+    corder = cols[np.argsort(clev, kind="stable")]
     col_off = np.zeros(nlev + 1, dtype=np.int64)
-    np.cumsum(np.bincount(lev, minlength=nlev), out=col_off[1:])
-    lower_diag = kind in (0, 2)  # diag first for L, last for U
-    diag_pos = t.p[:-1] if lower_diag else t.p[1:] - 1
-    col_diag = diag_pos[corder]
-    # off-diagonal entries, grouped by the level of their column
-    cols = col_ids(t.p, n)
-    pos = np.arange(nz, dtype=np.int64)
-    offd = np.ones(nz, dtype=bool)
-    offd[diag_pos] = False
-    pos = pos[offd]
-    ecols = cols[offd]
-    erows = t.i[:nz][offd]
-    elev = lev[ecols]
+    np.cumsum(np.bincount(clev, minlength=nlev), out=col_off[1:])
+    elev = lv[ecols]
     eorder = np.argsort(elev, kind="stable")
     ent_off = np.zeros(nlev + 1, dtype=np.int64)
     np.cumsum(np.bincount(elev, minlength=nlev), out=ent_off[1:])
     # slot of each entry's column within its level (for gather-form kinds)
-    slot_of_col = np.empty(n, dtype=np.int64)
-    slot_of_col[corder] = np.arange(n) - np.repeat(col_off[:-1], np.diff(col_off))
-    emax = int(np.diff(ent_off).max()) if nlev and nz > n else 0
-    wmax = int(np.diff(col_off).max()) if n else 0
+    slot_of_col = np.zeros(n, dtype=np.int64)
+    slot_of_col[corder] = (np.arange(len(cols))
+                           - np.repeat(col_off[:-1], np.diff(col_off)))
+    emax = int(np.diff(ent_off).max()) if len(pos) else 0
+    wmax = int(np.diff(col_off).max()) if len(cols) else 0
     return TriPlan(
         n=n,
         nlev=nlev,
@@ -96,9 +146,115 @@ def tri_plan(t: Sprs, kind: int) -> TriPlan:
         ent_slot=slot_of_col[ecols[eorder]].astype(np.int32),
         ent_off=ent_off.astype(np.int32),
         col_id=corder.astype(np.int32),
-        col_diag=col_diag.astype(np.int32),
+        col_diag=diag_pos[corder].astype(np.int32),
         col_off=col_off.astype(np.int32),
     )
+
+
+def _grow_chain(n: int, src: np.ndarray, dst: np.ndarray,
+                lev: np.ndarray) -> list:
+    """Grow a dense chain backward from the deepest sink of the DAG
+    (src -> dst): each step adds a node whose successors are exactly the
+    chain so far, the deepest (largest `lev`) of them. Returns the nodes in
+    the order added (last in dependency order first); the chain is closed
+    under successors and, in reverse, a fully dense triangle."""
+    outdeg = np.bincount(src, minlength=n)
+    sinks = np.nonzero(outdeg == 0)[0]
+    if not len(sinks):
+        return []
+    order = np.argsort(dst, kind="stable")
+    pp = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=pp[1:])
+    preds = src[order]
+    cnt = np.zeros(n, dtype=np.int64)  # successors already in the chain
+    inchain = np.zeros(n, dtype=bool)
+    u = int(sinks[np.argmax(lev[sinks])])
+    chain = [u]
+    inchain[u] = True
+    while True:
+        pr = preds[pp[u]: pp[u + 1]]
+        np.add.at(cnt, pr, 1)
+        m = len(chain)
+        cand = pr[(cnt[pr] == m) & (outdeg[pr] == m) & ~inchain[pr]]
+        if not len(cand):
+            return chain
+        u = int(cand[np.argmax(lev[cand])])
+        chain.append(u)
+        inchain[u] = True
+
+
+def _dense_split(t: Sprs, kind: int, lev: np.ndarray, diag_pos, pos, erows,
+                 ecols) -> Optional[DenseSplit]:
+    """Find the largest dense triangle D (>= DENSE_MIN columns) that can go
+    first or last in the solve, from the pattern alone; None if there is
+    none. Tries both: a chain closed under successors (last), and one
+    closed under predecessors (first, grown on the reversed DAG)."""
+    n = t.n
+    if n < DENSE_MIN:
+        return None
+    nz = t.nnz()
+    scatter = kind in (0, 1)
+    src, dst = (ecols, erows) if scatter else (erows, ecols)
+    # levels of the reversed DAG: kinds 0 <-> 2 and 1 <-> 3 on one matrix
+    lev_rev = native.tri_levels(n, t.p, t.i[:nz], kind ^ 2)
+    last = _grow_chain(n, src, dst, lev)[::-1]
+    first = _grow_chain(n, dst, src, lev_rev)
+    is_first = len(first) > len(last)
+    order = np.asarray(first if is_first else last, dtype=np.int64)
+    k = len(order)
+    if k < DENSE_MIN:
+        return None
+    idx = np.full(n, -1, dtype=np.int64)
+    idx[order] = np.arange(k)
+    ind = idx >= 0
+    inner = ind[erows] & ind[ecols]
+    a, b = idx[src[inner]], idx[dst[inner]]
+    if (len(a) != k * (k - 1) // 2 or not np.all(a < b)
+            or len(np.unique(b * k + a)) != len(a)):
+        return None  # duplicate entries: not one value per triangle slot
+    outm = ind[ecols] & ~ind[erows]
+    # the rest: columns outside D, levelled without D's edges
+    keep = np.zeros(nz, dtype=bool)
+    keep[diag_pos] = True
+    keep[pos[~(ind[erows] | ind[ecols])]] = True
+    cols_all = col_ids(t.p, n)
+    rp = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(cols_all[keep], minlength=n), out=rp[1:])
+    rlev = native.tri_levels(n, rp, t.i[:nz][keep], kind)
+    em = ~ind[ecols]
+    rest = _schedule(n, rlev, np.nonzero(~ind)[0], diag_pos, pos[em],
+                     erows[em], ecols[em])
+    i32 = lambda v: np.ascontiguousarray(v, dtype=np.int32)
+    return DenseSplit(
+        k=k, first=bool(is_first), cols=i32(order), diag=i32(diag_pos[order]),
+        tri_pos=i32(pos[inner]), tri_dst=i32(b), tri_src=i32(a),
+        out_pos=i32(pos[outm]), out_row=i32(erows[outm]),
+        out_idx=i32(idx[ecols[outm]]), rest=rest)
+
+
+def tri_plan(t: Sprs, kind: int) -> TriPlan:
+    """kind: 0=lsolve, 1=usolve (scatter form), 2=ltsolve, 3=utsolve (gather).
+
+    The level fields are the whole level schedule (the JAX package's);
+    `dense` adds the kernel's schedule when the factor has a dense block
+    (found when first read)."""
+    n = t.n
+    nz = t.nnz()
+    lev = native.tri_levels(n, t.p, t.i[:nz], kind)
+    lower_diag = kind in (0, 2)  # diag first for L, last for U
+    diag_pos = t.p[:-1] if lower_diag else t.p[1:] - 1
+    # off-diagonal entries and their columns
+    cols = col_ids(t.p, n)
+    pos = np.arange(nz, dtype=np.int64)
+    offd = np.ones(nz, dtype=bool)
+    offd[diag_pos] = False
+    pos = pos[offd]
+    ecols = cols[offd]
+    erows = t.i[:nz][offd].astype(np.int64)
+    plan = _schedule(n, lev, np.arange(n, dtype=np.int64), diag_pos, pos,
+                     erows, ecols)
+    return dataclasses.replace(plan, split=lambda: _dense_split(
+        t, kind, lev, diag_pos, pos, erows, ecols))
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +339,9 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     def solve_full(R):
         Rp = R if pin_d is None else torch.zeros_like(R).index_copy_(0, pin_d, R)
         Z = Rp.to(torch.float32)
-        for plan, v32, kind in sweeps:
-            Z = sptrsv_multi(v32, Z, plan, kind)
-        Xs = Z.to(torch.float64)
+        for plan, v32, kind in sweeps:  # X^T views between the sweeps
+            Z = sptrsv_multi(v32, Z, plan, kind, contiguous=False)
+        Xs = Z.to(torch.float64, memory_format=torch.contiguous_format)
         return Xs if pout_d is None else Xs[pout_d]
 
     def amul(X):
@@ -260,8 +416,9 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
         zp[pin] = bp
     else:
         zp[:] = bp
-    zt = _tri_solve_multi(lmat, zp, 0, device=dev)
-    zp = _tri_solve_multi(umat, zt, 1, device=dev).cpu().numpy()
+    p0, p1 = tri_plan(lmat, 0), tri_plan(umat, 1)
+    zt = _tri_solve_multi(lmat, zp, 0, p0, device=dev)
+    zp = _tri_solve_multi(umat, zt, 1, p1, device=dev).cpu().numpy()
     xp = np.zeros_like(zp)
     if s.q is not None:
         xp[np.asarray(s.q, np.int64)] = zp
@@ -275,9 +432,8 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
         umat = Sprs(len(Ux2), n, n, Up2, Ui2, np.asarray(Ux2))
         pin = np.asarray(pv, np.int64)
         route = "host_exact"
+        p0, p1 = tri_plan(lmat, 0), tri_plan(umat, 1)
     t3 = time.perf_counter()
-    p0 = tri_plan(lmat, 0)
-    p1 = tri_plan(umat, 1)
     # out[q[i]] = xs[i]  <=>  out[j] = xs[qinv[j]]
     pout = (np.argsort(np.asarray(s.q, np.int64))
             if s.q is not None else None)

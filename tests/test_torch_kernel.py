@@ -59,17 +59,56 @@ def test_plain_sweep_vs_dense_solve(kind, dtype, tol):
     assert _rel(X, want) < tol
 
 
+_SWEEP_CASES: dict = {}
+
+
+def _sweep_case(name, kind):
+    """The triangle and its plan for kind: "dense", L or U of the port's
+    multifrontal LU of chip_smoke.make_matrix(24) (a dense skeleton block of
+    109 columns); "levels", the host engine's factor of `_tri` (no block);
+    "large", chip_smoke.synthetic_triangle(70000, 96), whose n is too large
+    for X's column in shared memory (the global-memory variant)."""
+    key = (name, kind)
+    if key not in _SWEEP_CASES:
+        import chip_smoke
+
+        if name == "dense":
+            old, rt.config.mf_min_n = rt.config.mf_min_n, 100
+            try:
+                a = chip_smoke.make_matrix(24, 0)
+                s = rt.sqr(a, 1, False)
+                nm = rt.lu(a, s, 1e-6, device="cpu")
+                assert s._lu_route == "device_mf"
+            finally:
+                rt.config.mf_min_n = old
+            t = nm.l if kind in (0, 2) else nm.u
+            t = sprs_from_fields(t.n, t.n, t.p, t.i, t.x.cpu().numpy())
+        elif name == "levels":
+            t = _tri(kind)
+        else:
+            L, U = chip_smoke.synthetic_triangle(70000, 96, 0)
+            t = L if kind in (0, 2) else U
+        _SWEEP_CASES[key] = (t, rt.tri_plan(t, kind))
+    return _SWEEP_CASES[key]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-12)])
 @pytest.mark.parametrize("kind", [0, 1, 2, 3])
-@pytest.mark.parametrize("B", [2, 40, 128])
-def test_kernel_matches_plain_on_card(kind, dtype, tol, B):
-    """f32: atomics reorder the sums from run to run; f64: rounding level."""
+@pytest.mark.parametrize("B", [1, 2, 40, 128, 130])
+@pytest.mark.parametrize("case", ["dense", "levels", "large"])
+def test_kernel_matches_plain_on_card(case, kind, dtype, tol, B):
+    """One launch per sweep, against the level loop. f32: atomics reorder
+    the sums from run to run; f64: rounding level."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    t = _tri(kind)
-    plan = rt.tri_plan(t, kind)
+    from rsparse_tpu_torch.ops.sptrsv_cuda import launch_config
+
+    t, plan = _sweep_case(case, kind)
+    assert (plan.dense is not None) == (case != "levels")
+    cfg = launch_config(plan, dtype, "cuda")
+    assert cfg["variant"] == ("global" if case == "large" else "shared")
     tx = torch.as_tensor(t.x[: t.nnz()], dtype=dtype, device="cuda")
     X = torch.as_tensor(np.random.default_rng(B).standard_normal((t.n, B)),
                         dtype=dtype, device="cuda")
@@ -77,6 +116,7 @@ def test_kernel_matches_plain_on_card(kind, dtype, tol, B):
     got = sptrsv_multi(tx, X, plan, kind)
     torch.cuda.synchronize()
     assert sptrsv_multi.launches == before + 1
+    assert got.shape == X.shape and got.is_contiguous()
     assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
 
 
