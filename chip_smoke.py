@@ -27,12 +27,14 @@ them:
      version and against the C++ engine's gaxpy, its time beside its bound
      and a cuSPARSE CSR SpMV; then the public `spmv(a, x)` once and a
      50-step dependent chain through `spmv_fn`, as nnz/s beside the C++
-     engine's best of 5;
+     engine's best of 5; the kernel's L2-warm time is taken with its
+     launches queued behind a sleep kernel (device time, not launch cost);
   6. SpMM (main path 3): A = rand_csc(2^20, 2^20, 5.2M, seed 0), B = 128 in
      float32 and float64 and B = 8 in float32; the kernel against its plain
      version and, at B = 128, against 128 sequential C++ gaxpy calls; its
-     time beside its bound and a cuSPARSE CSR SpMM; then the public
-     `gaxpy_multi(a, X, device="cuda")` once.
+     time beside its bound and a cuSPARSE CSR SpMM; the same kernel in
+     float64 at B = 128 on the DIA phase's Laplacian (a pattern with
+     locality); then the public `gaxpy_multi(a, X, device="cuda")` once.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -43,7 +45,10 @@ or without the package beside it, it exits non-zero and prints no result.
     python3 chip_smoke.py [--seed 0]
 
 Kernel times are CUDA-event means; the DIA and SpMM phases evict the 50 MB
-L2 before every timed launch (their inputs would otherwise sit in it). A
+L2 before every timed launch (their inputs would otherwise sit in it) by
+reading a 256 MiB buffer, which leaves no dirty line to be written back
+inside the timed window, and queue their timed launches behind a sleep
+kernel so that the host's pauses are not timed. A
 bound is the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s and its FLOPs over the
 card's rate outside the tensor cores (67 TFLOP/s float32, 34 TFLOP/s
@@ -57,6 +62,7 @@ comparisons measure the algorithm, not the tensor-core rounding mode.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -163,20 +169,76 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cuda_ms_cold(fn, reps: int) -> float:
-    """Mean milliseconds of fn() by CUDA events around each run, each after
-    a 256 MiB write that evicts the L2 cache; one warm-up run first."""
+def clocks_up(seconds: float = 0.2) -> None:
+    """Keep the card busy for `seconds` (reductions over 256 MiB) so that a
+    timing that follows seconds of host work does not start at idle
+    clocks."""
     import torch
 
-    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    buf = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            buf.sum()
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def queued():
+    """Launches made inside run after a ~50 ms sleep kernel, with Python's
+    garbage collector off: the host queues them all before the card starts,
+    so CUDA events around them time the device, not the host's launch cost
+    or a pause of the host."""
+    import gc
+
+    import torch
+
+    gc.disable()
+    try:
+        torch.cuda._sleep(100_000_000)
+        yield
+    finally:
+        gc.enable()
+
+
+def cuda_ms_queued(fn, reps: int) -> float:
+    """Mean milliseconds of fn() back to back on the card (L2-warm), the
+    launches `queued`; the clocks raised and one warm-up run first."""
+    import torch
+
+    clocks_up()
     fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with queued():
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int) -> float:
+    """Mean milliseconds of fn() by CUDA events around each run, each after
+    a 256 MiB read (a sum) that leaves the L2 cache holding clean lines of
+    another buffer, so that no write-back of earlier results lands in the
+    timed window; the launches `queued`, the clocks raised and one warm-up
+    run first."""
+    import torch
+
+    flush = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    clocks_up()
+    fn()
+    torch.cuda.synchronize()
     evs = [(torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for start, end in evs:
-        flush.zero_()
-        start.record()
-        fn()
-        end.record()
+    with queued():
+        for start, end in evs:
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in evs) / reps
 
@@ -591,6 +653,7 @@ def phase_dia(seed: int, device: str = "cuda"):
         _, lib_rel = rel_err(torch.mv(A_csr, x), ref)
         ms = cuda_ms_cold(lambda: sp.dia_spmv(dia, x, plan), 20)
         b2b = cuda_ms(lambda: sp.dia_spmv(dia, x, plan), 20)
+        warm = cuda_ms_queued(lambda: sp.dia_spmv(dia, x, plan), 200)
         plain = cuda_ms_cold(lambda: sp.dia_spmv_plain(dia, x, plan), 5)
         lib = cuda_ms_cold(lambda: torch.mv(A_csr, x), 20)
         K, item = len(plan.offsets), dia.element_size()
@@ -599,7 +662,8 @@ def phase_dia(seed: int, device: str = "cuda"):
         print(f"dia {name}: n={n} nnz={nnz} K={K} plan_s={t_plan:.3f} "
               f"max_abs_err={err:.3e} rel_err={rel:.3e} "
               f"host_abs_err={host_err:.3e} kernel_ms={ms:.5f} "
-              f"back_to_back_ms={b2b:.5f} plain_ms={plain:.5f} "
+              f"warm_ms={warm:.5f} back_to_back_with_launch_ms={b2b:.5f} "
+              f"plain_ms={plain:.5f} "
               f"library_ms={lib:.5f} library_rel_diff={lib_rel:.3e} "
               f"bound_ms={b:.5f} ({by}) bound_share={b / ms:.4f}", flush=True)
         out[name] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -721,6 +785,8 @@ def phase_spmm(seed: int, device: str = "cuda"):
         del X, vals, vals_csr, A_csr
         torch.cuda.empty_cache()
 
+    max_abs = max(max_abs, spmm_laplacian(seed, device))
+
     # main path: the public gaxpy_multi on the card (float64, A's dtype)
     reset_counts()
     R = gaxpy_multi(a, X64, device=device)
@@ -736,6 +802,46 @@ def phase_spmm(seed: int, device: str = "cuda"):
     print("spmm main profile (gaxpy_multi, 3 calls): " + device_profile(
         lambda: gaxpy_multi(a, X64, device=device), 3), flush=True)
     return out, max_abs, counts
+
+
+def spmm_laplacian(seed: int, device: str = "cuda") -> float:
+    """The SpMM kernel in float64 at B = NRHS on the DIA phase's 1024 x 1024
+    Laplacian, a pattern with locality (neighbouring rows reuse X's rows
+    from L2): kernel vs plain, its time beside its bound. Returns the
+    largest absolute difference."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs
+    from rsparse_tpu_torch.ops.spmm_cuda import (spmm_csr, spmm_plain,
+                                                 spmm_plan_cached)
+
+    n, Ap, Ai, Ax = laplacian_5pt(DIA_GRID)
+    nnz = len(Ax)
+    plan = spmm_plan_cached(Sprs(nnz, n, n, Ap, Ai, Ax))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 6)
+    X = torch.randn((n, NRHS), generator=gen, dtype=torch.float64,
+                    device=device)
+    vals = torch.as_tensor(Ax, device=device)
+    vals_csr = vals[torch.as_tensor(plan.perm, device=device)]
+    got = spmm_csr(vals_csr, X, plan)
+    ref = spmm_plain(vals, X, plan)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (n, NRHS),
+          "spmm laplacian: bad kernel output")
+    check(rel <= NEW_TOL["float64"], f"spmm laplacian: kernel disagrees "
+          f"with the plain version: {rel:.3e}")
+    del got, ref
+    ms = cuda_ms_cold(lambda: spmm_csr(vals_csr, X, plan), 10)
+    b, by = bound_ms(nnz * 12 + 4 * (n + 1) + 2 * n * NRHS * 8,
+                     2 * nnz * NRHS, "float64")
+    print(f"spmm laplacian float64 B={NRHS}: n={n} nnz={nnz} "
+          f"max_abs_err={err:.3e} rel_err={rel:.3e} kernel_ms={ms:.4f} "
+          f"bound_ms={b:.4f} ({by}) bound_share={b / ms:.4f}", flush=True)
+    del X, vals, vals_csr
+    torch.cuda.empty_cache()
+    return err
 
 
 def main(argv=None) -> int:

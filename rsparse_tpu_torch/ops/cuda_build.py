@@ -12,6 +12,7 @@ all started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +27,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(device: str) -> int:
+    """The L2 cache size of a CUDA device, in bytes."""
+    import torch
+
+    return int(torch.cuda.get_device_properties(device).L2_cache_size)
 
 
 def source(name: str) -> str:

@@ -9,6 +9,8 @@ float64, no size gate; the source's header says what bounds it and how).
   - `spmm_plan(a)` / `spmm_plan_cached(a)`: the host plan (numpy): A's CSC
     entry rows and columns, and its CSR copy (row pointers, column ids and
     the CSR -> CSC entry permutation, from `ops.plan.transpose_plan`).
+  - `launch_config(B, itemsize, x_ptr)`: the kernel's lanes per row, its
+    tiles of RHS columns and its vector width.
   - `spmm_fn(plan)` returns `f(vals, X) -> R`, with vals the entry values
     in CSC order. On a CUDA tensor, f gathers them into CSR order
     (`vals[perm]`, a torch gather) and launches the kernel through
@@ -36,10 +38,11 @@ from . import cuda_build
 from .plan import _cached_plan, col_ids, device_cache, transpose_plan
 
 __all__ = ["SpmmPlan", "spmm_plan", "spmm_plan_cached", "spmm_fn", "spmm",
-           "spmm_csr", "spmm_plain", "build"]
+           "spmm_csr", "spmm_plain", "launch_config", "build"]
 
 SOURCE = cuda_build.source("spmm")
-_SLOTS = 4  # RHS columns per lane in one tile (csrc/spmm.cu kSlots)
+_LANE_BYTES = 32  # bytes of a tile row per lane (csrc/spmm.cu: K * V values)
+_MAX_LANES = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +74,7 @@ def spmm_plan_cached(a: Sprs) -> SpmmPlan:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.spmm_csr_f32, lib.spmm_csr_f64):
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
 
 
@@ -116,13 +119,20 @@ def spmm_plain(vals: torch.Tensor, X: torch.Tensor,
         0, st["rows"], vals[:, None] * X[st["cols"]])
 
 
-def _lanes(B: int) -> int:
-    """Lanes per output row: the least power of two W <= 32 with
-    4 W >= B, so one tile of 4 W columns covers B up to 128."""
-    w = 1
-    while w < 32 and _SLOTS * w < B:
-        w *= 2
-    return w
+def launch_config(B: int, itemsize: int, x_ptr: int) -> dict:
+    """The kernel's lanes per row W (the least power of two, at most 32,
+    for which W lanes of 32 bytes cover B columns), its tile of W * 32
+    bytes of columns (one tile up to 128 float64 or 256 float32 columns,
+    ragged tiles beyond), the number of tiles, and its vector width V:
+    float4 gathers in float32 when B and X's base allow it, else scalars
+    (always in float64: `csrc/spmm.cu` says why)."""
+    per_lane = _LANE_BYTES // itemsize
+    W = 1
+    while W < _MAX_LANES and W * per_lane < B:
+        W *= 2
+    V = 4 if itemsize == 4 and B % 4 == 0 and x_ptr % 16 == 0 else 1
+    tile = W * per_lane
+    return {"V": V, "W": W, "tile": tile, "tiles": -(-B // tile)}
 
 
 def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor,
@@ -138,18 +148,19 @@ def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor,
     R = X.new_empty((m, B))
     if m == 0 or B == 0:
         return R
-    W = _lanes(B)
-    if -(-B // (_SLOTS * W)) > 65535:
-        raise ValueError(f"B = {B} is too wide for the kernel's grid")
     st = _streams(plan, X.device)
     X = X.contiguous()
+    cfg = launch_config(B, X.element_size(), X.data_ptr())
+    if cfg["tiles"] > 65535:
+        raise ValueError(f"B = {B} is too wide for the kernel's grid")
     lib = build()
     fn = lib.spmm_csr_f32 if X.dtype == torch.float32 else lib.spmm_csr_f64
     dev = X.device
     rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
             st["row_ptr"].data_ptr(), st["col_idx"].data_ptr(),
             vals_csr.contiguous().data_ptr(), X.data_ptr(), R.data_ptr(),
-            m, B, W, torch.cuda.current_stream(dev).cuda_stream)
+            m, B, cfg["V"], cfg["W"],
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SpMM kernel launch failed (cudaError {rc})")
     spmm_csr.launches += 1

@@ -38,7 +38,7 @@ from .plan import col_ids, device_cache
 
 __all__ = ["DiaPlan", "dia_plan", "dia_plan_cached", "refresh_dia_values",
            "spmv", "spmv_fn", "dia_spmv", "dia_spmv_plain", "spgemm_dia",
-           "build"]
+           "interior_rows", "streams_dia", "build"]
 
 SOURCE = cuda_build.source("spmv_dia")
 _LANE = 128
@@ -164,7 +164,7 @@ def dia_plan_cached(a: Sprs, max_diags: int = 10**9,
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.spmv_dia_f32, lib.spmv_dia_f64):
-        fn.argtypes = [i, p, p, p, p, i, ctypes.c_int64, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, i, ctypes.c_int64, i, i, i, i, i, p]
         fn.restype = i
 
 
@@ -200,6 +200,26 @@ def dia_spmv_plain(dia: torch.Tensor, x: torch.Tensor,
     return acc[: plan.m]
 
 
+def interior_rows(offsets, m: int, n: int) -> tuple:
+    """[lo, hi): the rows i < m at which every i - offsets[k] lies in
+    [0, n), so that the kernel's tiles inside it skip the bounds checks
+    (lo = hi when there is none; every row when there is no offset)."""
+    if not len(offsets):
+        return 0, m
+    lo = min(max(0, max(offsets)), m)
+    hi = max(min(m, n + min(offsets)), lo)
+    return lo, hi
+
+
+def streams_dia(plan: DiaPlan, itemsize: int, l2_bytes: int) -> bool:
+    """Whether the kernel loads dia with the evict-first hint: when the
+    product's bytes (dia, x, r) exceed the L2 cache, so that x and r keep
+    their lines; below it, dia stays in L2 for the next product on the same
+    plan (an iterative solver's chain)."""
+    n_el = plan.rr * _LANE
+    return (len(plan.offsets) * n_el + plan.n + plan.m) * itemsize > l2_bytes
+
+
 def dia_spmv(dia: torch.Tensor, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
     """r[i] = sum_k dia[k, i] * x[i - offsets[k]] for i < m (the diagonal
     part of A @ x). A CUDA tensor goes through the kernel, a CPU tensor
@@ -216,15 +236,20 @@ def dia_spmv(dia: torch.Tensor, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
     r = x.new_empty(plan.m)
     if plan.m == 0:
         return r
-    off = device_cache(plan, "_dia_offsets", x.device, lambda: torch.as_tensor(
-        plan.offsets, dtype=torch.int32, device=x.device))
+    off, host_off, (lo, hi) = device_cache(plan, "_dia_offsets", x.device, lambda: (
+        torch.as_tensor(plan.offsets, dtype=torch.int32, device=x.device),
+        (ctypes.c_int * max(1, len(plan.offsets)))(*plan.offsets),
+        interior_rows(plan.offsets, plan.m, plan.n)))
+    stream = streams_dia(plan, x.element_size(),
+                         cuda_build.l2_bytes(str(x.device)))
     lib = build()
     fn = lib.spmv_dia_f32 if x.dtype == torch.float32 else lib.spmv_dia_f64
     dev = x.device
     rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
             dia.contiguous().data_ptr(), off.data_ptr(),
+            ctypes.addressof(host_off),
             x.contiguous().data_ptr(), r.data_ptr(), len(plan.offsets),
-            plan.rr * _LANE, plan.m, plan.n,
+            plan.rr * _LANE, plan.m, plan.n, lo, hi, int(stream),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"DIA SpMV kernel launch failed (cudaError {rc})")

@@ -241,3 +241,106 @@ def test_public_ops_launch_on_card():
     r = spmv_mod.spmv(a, X[:, 0], device="cuda")
     assert spmv_mod.dia_spmv.launches == before + 1
     assert _rel(r, torch.as_tensor(a.to_dense_np() @ X[:, 0])) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("B", [1, 5, 8, 40, 128, 130, 300])
+@pytest.mark.parametrize("pattern", ["random", "empty_rows", "no_entries",
+                                     "banded"])
+def test_spmm_tiles_on_card(pattern, B, dtype, tol):
+    """The kernel with one tile of columns and with ragged tiles (B = 130
+    in float64, 300 in both), vector gathers and, from an X whose base is
+    not 16-byte aligned, scalar ones, against the plain version; m != n for
+    the sparse shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = {"random": lambda: _rand_sprs(700, 500, 4000, B),
+         "empty_rows": lambda: _rand_sprs(900, 300, 600, B),
+         "no_entries": lambda: rt.Sprs.zeros(64, 50, 0),
+         "banded": lambda: _banded(400, 5, 0)}[pattern]()
+    plan = spmm_plan(a)
+    vals = torch.as_tensor(a.x[: a.nnz()], dtype=dtype, device="cuda")
+    vals_csr = vals[torch.as_tensor(plan.perm, device="cuda")]
+    X = torch.as_tensor(np.random.default_rng(B).standard_normal((a.n, B)),
+                        dtype=dtype, device="cuda")
+    flat = X.new_zeros(a.n * B + 1)
+    flat[1:] = X.reshape(-1)
+    unaligned = flat[1:].view(a.n, B)  # contiguous, base off by one value
+    want = spmm_plain(vals, X, plan)
+    for x in (X, unaligned):
+        before = spmm_csr.launches
+        got = spmm_csr(vals_csr, x, plan)
+        torch.cuda.synchronize()
+        assert spmm_csr.launches == before + 1
+        assert tuple(got.shape) == (a.m, B) and got.dtype == dtype
+        assert _rel(got, want) < tol
+
+
+def dia_case(m, n, offsets, dtype, seed):
+    """A hand-built DiaPlan (any offsets, beyond +-n too) with random
+    diagonal values, and a random x."""
+    rr = -(-max(m, n) // 128)
+    maxoff = max((abs(o) for o in offsets), default=0)
+    rng = np.random.default_rng(seed)
+    dia = rng.standard_normal((len(offsets), rr, 128)).astype(dtype)
+    plan = spmv_mod.DiaPlan(
+        n=n, m=m, rr=rr, offsets=tuple(offsets), dia=dia,
+        pad_rows=max(8, (-(-maxoff // 128) + 7) // 8 * 8), tile_rows=1,
+        rem_vals=None, rem_rows=None, rem_cols=None)
+    return plan, rng.standard_normal(n).astype(dtype)
+
+
+DIA_CASES = [
+    (4099, 4099, (0,)),  # K = 1; m not a multiple of 256
+    (5000, 4000, (-64, -1, 0, 1, 64)),  # K = 5, m != n
+    (3001, 3500, (-3600, -50, -1, 0, 1, 2, 50, 3502)),  # K = 8, beyond +-n
+    (2050, 2050, tuple(range(-4, 5))),  # K = 9: offsets in shared memory
+    (1100, 900, tuple(range(-150, 150))),  # K = 300: two chunks
+    (3, 7, (-1, 0, 2)),  # one tile, all of it edge
+    # 64 MB of float64 diagonals: over the L2, dia streamed (evict first)
+    (1_000_000, 1_000_000, (-1000, -2, -1, 0, 1, 2, 7, 1000)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("case", range(len(DIA_CASES)))
+def test_dia_kernel_cases_on_card(case, dtype, tol):
+    """K fixed (1, 5, 8) and staged (9, 300), interior and edge CTAs,
+    offsets beyond +-n, m != n and m not a multiple of a CTA's 256 rows,
+    against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m, n, offsets = DIA_CASES[case]
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    plan, x = dia_case(m, n, offsets, np_dt, case)
+    dia = torch.as_tensor(plan.dia, device="cuda")
+    xt = torch.as_tensor(x, device="cuda")
+    before = spmv_mod.dia_spmv.launches
+    got = spmv_mod.dia_spmv(dia, xt, plan)
+    torch.cuda.synchronize()
+    assert spmv_mod.dia_spmv.launches == before + 1
+    assert tuple(got.shape) == (m,)
+    assert _rel(got, spmv_mod.dia_spmv_plain(dia, xt, plan)) < tol
+
+
+@pytest.mark.gpu
+def test_dia_kernel_on_offset_view():
+    """A dia view at an offset of one value (no 16-byte alignment) and a
+    strided one: the kernel reads any base address."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    plan, x = dia_case(1000, 1000, (-1, 0, 1), np.float32, 0)
+    K, rr = len(plan.offsets), plan.rr
+    flat = torch.zeros(K * rr * 128 + 1, device="cuda")
+    flat[1:] = torch.as_tensor(plan.dia.reshape(-1), device="cuda")
+    shifted = flat[1:].view(K, rr, 128)
+    wide = torch.zeros(K, rr, 129, device="cuda")
+    wide[:, :, 1:] = shifted
+    xt = torch.as_tensor(x, device="cuda")
+    want = spmv_mod.dia_spmv_plain(shifted, xt, plan)
+    for dia in (shifted, wide[:, :, 1:]):
+        assert _rel(spmv_mod.dia_spmv(dia, xt, plan), want) < 1e-5

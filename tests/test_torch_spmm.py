@@ -3,7 +3,9 @@
 
 The JAX side runs its Pallas kernel (`spmm_pallas`) in interpret mode, as
 `tests/test_spmm_pallas.py` does; the port's CPU path is the kernel's plain
-torch version. Inputs are made in-process from numpy seeds.
+torch version. Inputs are made in-process from numpy seeds. The kernel's
+launch shape (lanes, tiles of columns, vector width) needs no JAX
+reference and is checked on its own.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ from bench import rand_csc  # noqa: E402
 from rsparse_tpu.ops.plan import transpose_plan as transpose_plan_jax  # noqa: E402
 from rsparse_tpu.ops.spmm_pallas import spmm_pallas  # noqa: E402
 from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+from rsparse_tpu_torch.ops import spmm_cuda as st_spmm  # noqa: E402
 from rsparse_tpu_torch.ops.spmm_cuda import (  # noqa: E402
     spmm, spmm_csr, spmm_fn, spmm_plan, spmm_plan_cached)
 
@@ -112,3 +115,63 @@ def test_cpu_path_counts_no_launch_and_fn_checks():
         f(vals, torch.ones((31, 4), dtype=torch.float64))
     with pytest.raises(ValueError, match="CUDA"):
         spmm_csr(vals, torch.ones((30, 4), dtype=torch.float64), plan)
+
+
+# The kernel's launch shape (host only).
+
+
+@pytest.mark.parametrize("B,itemsize,ptr,want", [
+    (128, 8, 0, (1, 32, 128, 1)),  # float64: scalars, one tile
+    (128, 4, 0, (4, 16, 128, 1)),  # float4, 16 lanes of 8 columns
+    (8, 4, 0, (4, 1, 8, 1)),  # a thread per row
+    (130, 8, 0, (1, 32, 128, 2)),  # a ragged second tile of 2 columns
+    (130, 4, 0, (1, 32, 256, 1)),  # 520-byte rows: scalars
+    (300, 4, 0, (4, 32, 256, 2)),
+    (1000, 8, 0, (1, 32, 128, 8)),
+    (8, 4, 8, (1, 1, 8, 1)),  # X's base not 16-byte aligned
+    (129, 4, 16, (1, 32, 256, 1)),
+    (40, 8, 0, (1, 16, 64, 1)),
+    (5, 8, 0, (1, 2, 8, 1)),
+    (1, 4, 0, (1, 1, 8, 1)),
+    (1, 8, 0, (1, 1, 4, 1)),
+    (257, 4, 0, (1, 32, 256, 2)),
+])
+def test_launch_config(B, itemsize, ptr, want):
+    cfg = st_spmm.launch_config(B, itemsize, ptr)
+    assert (cfg["V"], cfg["W"], cfg["tile"], cfg["tiles"]) == want
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_launch_config_tiles_cover_b(itemsize):
+    """For every B up to 600: W is a power of two up to 32, the tiles cover
+    B with the last one ragged, and one tile is used while B fits one."""
+    for B in range(1, 601):
+        cfg = st_spmm.launch_config(B, itemsize, 0)
+        W, tile, tiles = cfg["W"], cfg["tile"], cfg["tiles"]
+        assert W in (1, 2, 4, 8, 16, 32) and tile == W * 32 // itemsize
+        assert (tiles - 1) * tile < B <= tiles * tile
+        assert (tiles == 1) == (B <= 32 * 32 // itemsize)
+        assert W == 1 or (W // 2) * 32 // itemsize < B
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("B", [1, 5, 8, 40, 128, 130, 300])
+def test_kernel_lanes_cover_each_column_once(B, itemsize):
+    """The kernel's index map (csrc/spmm.cu): tile t, lane l < W, slot
+    k < K and vector element j hold column t * tile + (k W + l) V + j when
+    it is below B. Every column of R is written by exactly one lane, with
+    vector and scalar gathers."""
+    for ptr in (0, 8):
+        cfg = st_spmm.launch_config(B, itemsize, ptr)
+        V, W, tile = cfg["V"], cfg["W"], cfg["tile"]
+        K = 32 // itemsize // V
+        seen = []
+        for t in range(cfg["tiles"]):
+            c_lo, c_hi = t * tile, min(B, (t + 1) * tile)
+            for lane in range(W):
+                for k in range(K):
+                    c = c_lo + (k * W + lane) * V
+                    if c < c_hi:
+                        assert c + V <= c_hi  # a vector never crosses B
+                        seen.extend(range(c, c + V))
+        assert sorted(seen) == list(range(B))

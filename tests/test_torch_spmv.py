@@ -19,6 +19,7 @@ from bench import laplacian_5pt, rand_csc  # noqa: E402
 from rsparse_tpu.ops import spmv as sj  # noqa: E402
 from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
 from rsparse_tpu_torch.ops import spmv as st  # noqa: E402
+from test_torch_kernel import dia_case  # noqa: E402  (jax-free helpers)
 
 
 def _pair_dense(d):
@@ -178,3 +179,55 @@ def test_spgemm_dia_dense_pattern_falls_back():
                st.spgemm_dia(at, at, materialize=True, device="cpu"))
     with pytest.raises(ValueError):
         st.spgemm_dia(at, rt.Sprs.zeros(299, 3, 0), device="cpu")
+
+
+# The DIA kernel's host-side arguments (no JAX reference needed).
+
+
+@pytest.mark.parametrize("m,n", [(10, 10), (7, 12), (12, 7), (1, 1), (130, 3)])
+def test_interior_rows_brute_force(m, n):
+    """[lo, hi) is exactly the rows at which every i - off lies in [0, n),
+    offsets beyond +-n included."""
+    rng = np.random.default_rng(m * 31 + n)
+    sets = [(), (0,), (-n - 3,), (m + 2,), (n, -n)]
+    sets += [tuple(sorted(rng.choice(np.arange(-20, 21), k, replace=False)))
+             for k in (1, 2, 3, 5, 9) for _ in range(6)]
+    for offs in sets:
+        lo, hi = st.interior_rows(offs, m, n)
+        want = [i for i in range(m) if all(0 <= i - o < n for o in offs)]
+        assert 0 <= lo <= hi <= m
+        assert list(range(lo, hi)) == want, (offs, lo, hi)
+
+
+@pytest.mark.parametrize("m,n,offsets", [
+    (300, 300, (-1, 0, 1)),
+    (1027, 1000, (-1000, -1, 0, 3, 1001)),  # m != n, beyond +-n
+    (5, 900, (-1200, -899, 0, 4, 6)),
+    (900, 5, tuple(range(-9, 0))),  # K = 9
+    (513, 260, tuple(range(-140, 140))),  # K = 280: more than 256
+])
+def test_plain_dia_on_any_offsets(m, n, offsets):
+    """The plain version (the kernel's reference) against the defining sum,
+    r[i] = sum_k dia[k, i] x[i - off_k] with out-of-range terms 0."""
+    plan, x = dia_case(m, n, offsets, np.float64, m + n)
+    got = st.dia_spmv_plain(torch.as_tensor(plan.dia), torch.as_tensor(x), plan)
+    flat = plan.dia.reshape(len(offsets), -1)
+    want = np.zeros(m)
+    for k, o in enumerate(offsets):
+        for i in range(m):
+            if 0 <= i - o < n:
+                want[i] += flat[k, i] * x[i - o]
+    assert got.shape == (m,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("g,dtype,want", [(1024, np.float32, False),
+                                          (1024, np.float64, True),
+                                          (12, np.float64, False)])
+def test_streams_dia_above_the_l2(g, dtype, want):
+    """The kernel streams dia (evict first) only when dia, x and r together
+    exceed the L2 (50 MiB here): the 2^20 Laplacian's float64 plan (50 MB
+    of diagonals), not its float32 one."""
+    n, p, i, x = laplacian_5pt(g)
+    plan = st.dia_plan(sprs_from_fields(n, n, p, i, x), dtype=dtype)
+    assert st.streams_dia(plan, np.dtype(dtype).itemsize, 50 * 2**20) is want
