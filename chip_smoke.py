@@ -34,7 +34,32 @@ them:
      version and, at B = 128, against 128 sequential C++ gaxpy calls; its
      time beside its bound and a cuSPARSE CSR SpMM; the same kernel in
      float64 at B = 128 on the DIA phase's Laplacian (a pattern with
-     locality); then the public `gaxpy_multi(a, X, device="cuda")` once.
+     locality); then the public `gaxpy_multi(a, X, device="cuda")` once;
+  7. lusol (main path 4): the lusol_serve phase's matrix, `lusol(A, b, 1,
+     1e-6, sym=s, device="cuda")` once cold and three times warm (b a list
+     once, an ndarray otherwise); each answer held to its residual and to
+     the C++ engine's exact LU solve, b's overwrite checked, every call's
+     route must be the device multifrontal one and not rejected; walls
+     beside the C++ engine's;
+  8. cholsol (main path 5): the 256 x 256 5-point Laplacian (n = 65,536),
+     AMD (order 1), `cholsol(A, b, 1, sym=s, device="cuda")` once cold and
+     three times warm; each answer held to the C++ engine's chol + two
+     triangular solves, every call's route must be the device
+     multifrontal one; walls beside one C++ factorization and solve per
+     call, the innermost skeleton's size and cut; every kernel sweep of a
+     warm call (the factorization's W = L_NN^-1 C(N, T), float64, B =
+     2,048, and the solve's two B = 1 sweeps) replayed on its recorded
+     inputs against its plain version, with its time and bound; then the
+     error contracts on the card: NotPositiveDefiniteError from cholsol
+     with one diagonal negated (a 24 x 24 Laplacian on the level route, and
+     the full matrix on the multifrontal route with its analysis reused),
+     and NoPivotError from lusol on a structurally singular matrix;
+  9. cholsol_serve (main path 6): the same Laplacian, 4 requests of
+     B[n, 128]; each answer held to its residual and to the C++ engine's 128
+     sequential solves, at least 2 kernel launches per request; the
+     handle's L-then-L' kernel pair against its plain version on one
+     request; the L' (gather form) sweep's time beside its bound and a
+     cuSPARSE triangular solve; a profile of two requests.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -80,6 +105,8 @@ GLOBAL_N = 70_000  # a triangle too large for an X column in shared memory
 DIA_GRID = 1024  # the JAX bench's DIA SpMV matrix (bench.py:585-621)
 SPMM_N, SPMM_NNZ = 1 << 20, 5_200_000  # its arbitrary pattern (bench.py:628-629)
 CHAIN = 50
+CHOL_GRID = 256  # the cholsol phases' Laplacian, n = CHOL_GRID**2
+ERR_GRID = 24  # the error contracts' small matrices
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
@@ -250,6 +277,20 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sweep_work(plan, B: int, item: int):
+    """(bytes, operations) one sweep of `plan` over X[n, B] must spend:
+    each off-diagonal entry's value and row index (in a dense block the
+    value only, its place implied), each column's diagonal value and
+    pointer, X read and written once; a multiply-add per entry and RHS
+    column, a division per column and RHS column."""
+    n, nent = plan.n, int(plan.ent_off[-1])
+    d = plan.dense
+    nblk = d.k * (d.k - 1) // 2 if d is not None else 0
+    nbytes = ((item + 4) * (nent - nblk) + item * nblk + (item + 4) * n
+              + 2 * n * B * item)
+    return nbytes, 2 * nent * B + n * B
+
+
 def dname(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
@@ -314,8 +355,9 @@ def rand_csc(m: int, n: int, nnz: int, seed: int):
 
 def device_profile(fn, steps: int) -> str:
     """Run fn() `steps` times under torch.profiler and summarize: host wall
-    and device busy time per step, the device's idle share, and the top
-    device activities by time (kernels, copies, fills)."""
+    and device busy time per step, the device activities per step
+    (kernels, copies, fills), the device's idle share, and the top device
+    activities by time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -326,16 +368,18 @@ def device_profile(fn, steps: int) -> str:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, ops = {}, 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            ops += 1
     busy_us = sum(by_name.values())
     if not by_name:
         return f"wall_us_per_step={wall_us / steps:.1f} device time not measured"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return (f"wall_us_per_step={wall_us / steps:.1f} device_us_per_step="
-            f"{busy_us / steps:.1f} idle_share={1 - busy_us / wall_us:.3f} top="
+            f"{busy_us / steps:.1f} device_ops_per_step={ops / steps:.0f} "
+            f"idle_share={1 - busy_us / wall_us:.3f} top="
             + ";".join(f"{k[:48]}={v / steps:.1f}us" for k, v in top))
 
 
@@ -466,15 +510,9 @@ def sweep_pair_yardsticks(a, nm, rng, main: dict, device: str) -> None:
     mats, plans = [], []
     for t, kind in ((nm.l, 0), (nm.u, 1)):
         plan = tri_plan(t, kind)
-        nent = int(plan.ent_off[-1])
-        d = plan.dense
-        nblk = d.k * (d.k - 1) // 2 if d is not None else 0
-        # off-diagonal entries (value and row index; in the dense block the
-        # value only, its place implied), columns (diagonal value, column
-        # pointer), X read and X written
-        nbytes += (8 * (nent - nblk) + 4 * nblk + 8 * n
-                   + 2 * n * NRHS * 4)
-        flops += 2 * nent * NRHS + n * NRHS
+        work = sweep_work(plan, NRHS, 4)
+        nbytes += work[0]
+        flops += work[1]
         levels.append(plan.nlev)
         vals = t.x[: t.nnz()].to(torch.float32)
         tp = transpose_plan(t)  # CSR of the CSC factor
@@ -844,6 +882,357 @@ def spmm_laplacian(seed: int, device: str = "cuda") -> float:
     return err
 
 
+def host_residual(a, x: np.ndarray) -> np.ndarray:
+    """A @ x by the C++ engine's gaxpy."""
+    from rsparse_tpu_torch.symbolic import native
+
+    return native.gaxpy_host(a.m, a.n, a.p, a.i[: a.nnz()], a.x[: a.nnz()],
+                             np.ascontiguousarray(x, np.float64),
+                             np.zeros(a.m))
+
+
+def phase_lusol(a, seed: int, device: str = "cuda"):
+    """lusol on the card: one cold and three warm calls with the analysis
+    reused, each checked; returns the kernel launches of the run."""
+    from rsparse_tpu_torch import lusol, sqr
+    from rsparse_tpu_torch.symbolic import native
+
+    n, nz = a.n, a.nnz()
+    rng = np.random.default_rng(seed + 7)
+    bs = [rng.standard_normal(n) for _ in range(4)]
+    s0 = sqr(a, 1, False)
+    q = np.asarray(s0.q, np.int64)
+
+    def host_once(b):
+        Lp, Li, Lx, Up, Ui, Ux, pinv = native.lu_numeric(
+            n, a.p, a.i[:nz], a.x[:nz], s0.q, 1e-6, s0.lnz, s0.unz)
+        xx = np.zeros(n)
+        xx[pinv] = b
+        native.lsolve_host(n, Lp, Li, Lx, xx)
+        native.usolve_host(n, Up, Ui, Ux, xx)
+        out = np.zeros(n)
+        out[q] = xx
+        return out
+
+    reset_counts()
+    s = sqr(a, 1, False)
+    walls, answers, routes = [], [], []
+    for k, b in enumerate(bs):
+        arg = list(b) if k == 1 else b.copy()
+        t0 = time.perf_counter()
+        x = lusol(a, arg, 1, 1e-6, sym=s, device=device)
+        walls.append(time.perf_counter() - t0)
+        routes.append(s._lu_route)
+        check(np.array_equal(np.asarray(arg), x),
+              f"lusol call {k}: b ({type(arg).__name__}) not overwritten")
+        answers.append(x)
+    launches = read_counts()["sptrsv_sweep"]
+    host_walls = []
+    for k, (b, x) in enumerate(zip(bs, answers)):
+        t0 = time.perf_counter()
+        xh = host_once(b)
+        host_walls.append(time.perf_counter() - t0)
+        res = float(np.abs(host_residual(a, x) - b).max())
+        dev = float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+        print(f"lusol: call {k} ({'cold' if k == 0 else 'warm'}) "
+              f"residual={res:.3e} host_rel_diff={dev:.3e}", flush=True)
+        check(bool(np.isfinite(x).all()) and x.shape == (n,),
+              f"lusol call {k}: bad answer")
+        check(res <= 1e-10 * max(1.0, float(np.abs(b).max())),
+              f"lusol call {k}: residual {res:.3e} over bound")
+        check(dev <= 1e-8, f"lusol call {k}: differs from the host engine "
+              f"by {dev:.3e}")
+    mfp = s._mf_lu_plan
+    print(f"lusol: n={n} nnz={nz} routes={','.join(routes)} static_rejected="
+          f"{bool(getattr(s, '_static_rejected', False))} skeleton="
+          f"{type(mfp.skel_plan).__name__ if mfp is not None else None} "
+          f"wall_s=" + ",".join(f"{w:.4f}" for w in walls)
+          + " host_engine_s=" + ",".join(f"{w:.4f}" for w in host_walls)
+          + f" sweep_launches={launches}", flush=True)
+    check(set(routes) == {"device_mf"}
+          and not getattr(s, "_static_rejected", False),
+          f"lusol routes {routes}, not all the device multifrontal LU")
+    print("lusol profile (1 warm call): " + device_profile(
+        lambda: lusol(a, bs[0].copy(), 1, 1e-6, sym=s, device=device), 1),
+        flush=True)
+    return launches
+
+
+def chol_host_factor(a, s):
+    """The C++ engine's exact Cholesky of triu(PAP') for analysis s."""
+    from rsparse_tpu_torch import symperm
+    from rsparse_tpu_torch.symbolic import native
+
+    c = symperm(a, s.pinv, device="cpu")
+    return native.chol_numeric(a.n, c.p, c.i[: c.nnz()], c.x[: c.nnz()],
+                               s.parent, s.cp)
+
+
+def chol_host_solves(n, factors, pinv, B: np.ndarray) -> np.ndarray:
+    """One C++ engine solve per column of B on the Cholesky factors."""
+    from rsparse_tpu_torch.symbolic import native
+
+    Lp, Li, Lx = factors
+    X = np.empty_like(B)
+    for j in range(B.shape[1]):
+        xx = np.zeros(n)
+        xx[pinv] = B[:, j]
+        native.lsolve_host(n, Lp, Li, Lx, xx)
+        native.ltsolve_host(n, Lp, Li, Lx, xx)
+        X[:, j] = xx[pinv]
+    return X
+
+
+def phase_cholsol(seed: int, device: str = "cuda"):
+    """cholsol on the card: one cold and three warm calls on the
+    CHOL_GRID Laplacian with the analysis reused, checked against the C++
+    engine; then the error contracts. Returns (the Laplacian, its
+    analysis, the kernel launches of the run)."""
+    from rsparse_tpu_torch import NoPivotError, NotPositiveDefiniteError, Sprs
+    from rsparse_tpu_torch import cholsol, lusol, schol
+    from rsparse_tpu_torch.factor.frontal import MFPlan
+
+    n, Ap, Ai, Ax = laplacian_5pt(CHOL_GRID)
+    a = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    rng = np.random.default_rng(seed + 8)
+    bs = [rng.standard_normal(n) for _ in range(4)]
+    reset_counts()
+    t0 = time.perf_counter()
+    s = schol(a, 1)
+    t_an = time.perf_counter() - t0
+    walls, answers, routes = [], [], []
+    for b in bs:
+        t0 = time.perf_counter()
+        answers.append(cholsol(a, b.copy(), 1, sym=s, device=device))
+        walls.append(time.perf_counter() - t0)
+        routes.append(getattr(s, "_chol_route", None))
+    launches = read_counts()["sptrsv_sweep"]
+    pinv = np.asarray(s.pinv, np.int64)
+    host_walls = []
+    for k, (b, x) in enumerate(zip(bs, answers)):
+        t0 = time.perf_counter()  # one C++ factorization and solve per call
+        xh = chol_host_solves(n, chol_host_factor(a, s), pinv, b[:, None])[:, 0]
+        host_walls.append(time.perf_counter() - t0)
+        res = float(np.abs(host_residual(a, x) - b).max())
+        dev = float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+        print(f"cholsol: call {k} ({'cold' if k == 0 else 'warm'}) "
+              f"residual={res:.3e} host_rel_diff={dev:.3e}", flush=True)
+        check(bool(np.isfinite(x).all()) and x.shape == (n,),
+              f"cholsol call {k}: bad answer")
+        check(dev <= 1e-9, f"cholsol call {k}: differs from the host engine "
+              f"by {dev:.3e}")
+    plan, depth = s._mf_plan, 0
+    while isinstance(plan, MFPlan):
+        plan, depth = plan.skel_plan, depth + 1
+    tail = plan.tail if plan is not None else None
+    print(f"cholsol: n={n} nnz={a.nnz()} lnz={int(s.cp[n])} analysis_s="
+          f"{t_an:.4f} "
+          f"mf_depth={depth} innermost_n={getattr(plan, 'n', None)} "
+          f"innermost_levels={len(plan.levels) if plan is not None else None} "
+          f"innermost_cut={tail.cut if tail else None} "
+          f"innermost_tail={tail.d if tail else None} routes="
+          + ",".join(map(str, routes))
+          + " wall_s=" + ",".join(f"{w:.4f}" for w in walls)
+          + " host_engine_chol_plus_solve_s="
+          + ",".join(f"{w:.4f}" for w in host_walls)
+          + f" sweep_launches={launches}", flush=True)
+    check(set(routes) == {"device_mf"}, f"cholsol routes {routes}, not all "
+          "the device multifrontal Cholesky")
+    print("cholsol profile (1 warm call): " + device_profile(
+        lambda: cholsol(a, bs[0].copy(), 1, sym=s, device=device), 1),
+        flush=True)
+    replay_cholsol_sweeps(
+        lambda: cholsol(a, bs[0].copy(), 1, sym=s, device=device))
+
+    # error contracts on the card
+    def negated(m, col):
+        x = m.x.copy()
+        lo, hi = int(m.p[col]), int(m.p[col + 1])
+        x[lo + int(np.nonzero(m.i[lo:hi] == col)[0][0])] = -4.0
+        return Sprs(m.nnz(), m.m, m.n, m.p, m.i, x)
+
+    ns, sp_, si, sx = laplacian_5pt(ERR_GRID)
+    small = Sprs(len(sx), ns, ns, sp_, si, sx)
+    for name, m, sym in (("level", negated(small, ns // 2), None),
+                         ("mf", negated(a, n // 2), s)):
+        try:
+            cholsol(m, np.ones(m.n), 1, sym=sym, device=device)
+        except NotPositiveDefiniteError:
+            print(f"cholsol: NotPositiveDefiniteError raised ({name} route, "
+                  f"n={m.n})", flush=True)
+        else:
+            raise SmokeError(f"cholsol ({name} route): no "
+                             "NotPositiveDefiniteError on an indefinite matrix")
+    sing = make_matrix(ERR_GRID, seed)
+    x = sing.x.copy()
+    x[sing.p[5]: sing.p[6]] = 0.0  # column 5 zero: structurally singular
+    sing = Sprs(sing.nnz(), sing.m, sing.n, sing.p, sing.i, x)
+    sing.trim()
+    try:
+        lusol(sing, np.ones(sing.n), 1, 1e-6, device=device)
+    except NoPivotError:
+        print(f"lusol: NoPivotError raised (n={sing.n})", flush=True)
+    else:
+        raise SmokeError("lusol: no NoPivotError on a singular matrix")
+    return a, s, launches
+
+
+def replay_cholsol_sweeps(call) -> None:
+    """Every kernel sweep one cholsol call launches, recorded with its
+    inputs and replayed: the factorization's W = L_NN^-1 C(N, T) (float64,
+    B = the dense tail's width) and the solve's two B = 1 sweeps of L_NN
+    (kinds 0 and 2), when the innermost leading block is too large to
+    densify. Each distinct sweep is held against its plain version, and
+    its time printed beside its bound."""
+    import torch
+
+    from rsparse_tpu_torch.ops import sptrsv_cuda
+    from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config,
+                                                   sptrsv_plain_multi)
+
+    real, seen = sptrsv_cuda.sptrsv_multi, {}
+
+    def record(vals, X, plan, kind, **kw):
+        key = (id(plan), kind, X.shape[1])
+        if key not in seen:
+            seen[key] = (vals.clone(), X.clone(), plan, kind)
+        return real(vals, X, plan, kind, **kw)
+
+    record.launches = 0  # the kernel counts its launches on the module's name
+    sptrsv_cuda.sptrsv_multi = record
+    try:
+        call()
+    finally:
+        sptrsv_cuda.sptrsv_multi = real
+    if not seen:
+        print("cholsol: no sweep (the innermost leading block is dense)",
+              flush=True)
+    for vals, X, plan, kind in seen.values():
+        B, dt = X.shape[1], dname(vals.dtype)
+        what = "factor" if B > 1 else "solve"
+        print_schedule(plan, kind, launch_config(plan, vals.dtype, X.device))
+        got = real(vals, X, plan, kind)
+        ref = sptrsv_plain_multi(vals, X, plan, kind)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= TOL[dt],
+              f"cholsol {what} sweep kind={kind} B={B}: the kernel disagrees "
+              f"with the plain version: {rel:.3e}")
+        ms = cuda_ms(lambda: real(vals, X, plan, kind), 5 if B > 1 else 10)
+        b_ms, b_by = bound_ms(*sweep_work(plan, B, vals.element_size()), dt)
+        print(f"cholsol: L_NN {what} sweep kind={kind} {dt} B={B} "
+              f"n={plan.n}: max_abs_err={err:.3e} rel_err={rel:.3e} "
+              f"kernel_ms={ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+              f"bound_share={b_ms / ms:.5f}", flush=True)
+
+
+def phase_cholsol_serve(a, s, seed: int, device: str = "cuda"):
+    """cholsol_serve on the card: 4 requests, checked; the kernel pair
+    against its plain version; the L' sweep's time and bound. Returns
+    (launches, the L' sweep's numbers, the largest kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, cholsol_serve
+    from rsparse_tpu_torch.ops.plan import col_ids, transpose_plan
+    from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config, sptrsv_multi,
+                                                   sptrsv_plain_multi)
+
+    n = a.n
+    rng = np.random.default_rng(seed + 9)
+    requests = [rng.standard_normal((n, NRHS)) for _ in range(REQUESTS)]
+    reset_counts()
+    h = cholsol_serve(a, 1, sym=s, device=device)
+    answers, walls = [], []
+    for B in requests:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        X = h(torch.as_tensor(B, device=device))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        answers.append(X)
+    launches = read_counts()["sptrsv_sweep"]
+    bsec = h.build_seconds
+    print(f"cholsol_serve: n={n} route={h.factor_route} factor_s="
+          f"{bsec['factor']:.4f} handle_s={bsec['handle']:.4f} "
+          "request_wall_s=" + ",".join(f"{w:.5f}" for w in walls)
+          + f" kernel_launches={launches}", flush=True)
+    check(h.factor_route == "device_mf", f"cholsol_serve route is "
+          f"{h.factor_route}, not the device multifrontal Cholesky")
+    check(launches >= 2 * REQUESTS,
+          f"cholsol_serve: only {launches} kernel launches for {REQUESTS} "
+          "requests")
+    factors = chol_host_factor(a, s)
+    pinv = np.asarray(s.pinv, np.int64)
+    nz = a.nnz()
+    Mi = torch.as_tensor(a.i[:nz], device=device)
+    Mj = torch.as_tensor(col_ids(a.p, n), device=device)
+    Mx = torch.as_tensor(a.x[:nz], device=device)
+    for k, (B, X) in enumerate(zip(requests, answers)):
+        check(tuple(X.shape) == (n, NRHS) and bool(torch.isfinite(X).all()),
+              f"cholsol_serve request {k}: bad answer")
+        Bd = torch.as_tensor(B, device=device)
+        AX = torch.zeros_like(X).index_add_(0, Mi, Mx[:, None] * X[Mj])
+        res = float((AX - Bd).abs().max())
+        t0 = time.perf_counter()
+        Xh = chol_host_solves(n, factors, pinv, B)
+        t_host = time.perf_counter() - t0
+        Xc = X.cpu().numpy()
+        dev = float(np.abs(Xc - Xh).max() / max(1.0, np.abs(Xh).max()))
+        print(f"cholsol_serve: request {k} residual={res:.3e} "
+              f"host_rel_diff={dev:.3e} host_engine_128_solves_s="
+              f"{t_host:.4f}", flush=True)
+        check(dev <= 1e-9, f"cholsol_serve request {k}: differs from the "
+              f"host engine by {dev:.3e}")
+
+    # the handle's kernel pair (L then L') against its plain version
+    (p0, v32, k0), (p2, _, k2) = h.chain
+    Z = torch.as_tensor(requests[0], dtype=torch.float32, device=device)
+    Z = torch.zeros_like(Z).index_copy_(
+        0, torch.as_tensor(pinv, device=device), Z)
+    got = sptrsv_multi(v32, sptrsv_multi(v32, Z, p0, k0), p2, k2)
+    ref = sptrsv_plain_multi(v32, sptrsv_plain_multi(v32, Z, p0, k0), p2, k2)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    print(f"cholsol_serve: kernel L,L' pair vs plain float32 B={NRHS}: "
+          f"max_abs_err={err:.3e} rel_err={rel:.3e}", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel <= TOL["float32"],
+          f"cholsol_serve: the kernel pair disagrees with the plain version: "
+          f"{rel:.3e}")
+    for plan, kind in ((p0, 0), (p2, 2)):
+        print_schedule(plan, kind, launch_config(plan, torch.float32, device))
+
+    # the L' sweep (gather form): time, bound, plain and cuSPARSE
+    Y = sptrsv_multi(v32, Z, p0, 0)
+    ms = cuda_ms(lambda: sptrsv_multi(v32, Y, p2, 2, contiguous=False), 5)
+    plain = cuda_ms(lambda: sptrsv_plain_multi(v32, Y, p2, 2), 1)
+    nbytes, flops = sweep_work(p2, NRHS, 4)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    mfp = s._mf_plan  # L's pattern: the multifrontal plan's
+    tp = transpose_plan(Sprs(mfp.lnz, n, n, mfp.Lp, mfp.Li, None))
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    L_csr = torch.sparse_csr_tensor(ix(tp.out_p), ix(tp.out_i),
+                                    v32[ix(tp.perm)], size=(n, n))
+    try:
+        lib_out = torch.triangular_solve(Y, L_csr, upper=False,
+                                         transpose=True).solution
+        _, lib_rel = rel_err(lib_out, sptrsv_multi(v32, Y, p2, 2))
+        lib = cuda_ms(lambda: torch.triangular_solve(
+            Y, L_csr, upper=False, transpose=True).solution, 3)
+        lib_txt = f"library_ms={lib:.4f} library_rel_diff={lib_rel:.3e}"
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        lib = None
+        lib_txt = f"library: none ({type(e).__name__})"
+    print(f"cholsol_serve: L' sweep (kind 2) float32 B={NRHS}: "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b_ms:.5f} "
+          f"({b_by}, {nbytes} bytes) bound_share={b_ms / ms:.5f} {lib_txt}",
+          flush=True)
+    B0 = torch.as_tensor(requests[0], device=device)
+    print("cholsol_serve profile (2 requests): "
+          + device_profile(lambda: h(B0), 2), flush=True)
+    return launches, {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib}, err
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -886,6 +1275,10 @@ def main(argv=None) -> int:
         launches = phase_main(a, args.seed)
         dia, dia_err, dia_counts = phase_dia(args.seed)
         spmm, spmm_err, spmm_counts = phase_spmm(args.seed)
+        lusol_launches = phase_lusol(a, args.seed)
+        lap, lap_sym, cholsol_launches = phase_cholsol(args.seed)
+        serve_launches, kind2, kind2_err = phase_cholsol_serve(
+            lap, lap_sym, args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -894,10 +1287,16 @@ def main(argv=None) -> int:
         replaces=rep, launches=n, max_abs_err=err, ms=t["ms"],
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t["library_ms"])
+    by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
+               "cholsol": cholsol_launches, "lusol": lusol_launches}
+    print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
+          f"sweep: {kind2}", flush=True)
+    sweep = entry("sptrsv_sweep", "sptrsv.cu",
+                  "rsparse_tpu/ops/sptrsv_pallas.py:191",
+                  sum(by_path.values()), max(max_abs, kind2_err), main_ms)
+    sweep["launches_by_path"] = by_path
     print(json.dumps({"kernels": [
-        entry("sptrsv_sweep", "sptrsv.cu",
-              "rsparse_tpu/ops/sptrsv_pallas.py:191", launches, max_abs,
-              main_ms),
+        sweep,
         entry("spmm_stream", "spmm.cu", "rsparse_tpu/ops/spmm_pallas.py:105",
               spmm_counts["spmm_stream"], spmm_err, spmm[("float64", NRHS)]),
         entry("spmv_dia", "spmv_dia.cu", "rsparse_tpu/ops/spmv.py:194",

@@ -4,7 +4,8 @@ A second implementation of the sparse direct-solver framework, for one
 NVIDIA H100 (sm_90a), checked against the JAX package it is ported from.
 It imports torch and numpy, never jax or rsparse_tpu.
 
-Ported so far (the `lusol_serve` slice and the L2 operator slice):
+Ported so far (the `lusol_serve` slice, the L2 operator slice, and the
+direct solvers `lusol`/`cholsol`):
   - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), and
     `convert` to build them from plain numpy fields.
   - L2' ops: `add`, `multiply`, `transpose`, `gaxpy`, `norm`, `scpmat`,
@@ -19,9 +20,16 @@ Ported so far (the `lusol_serve` slice and the L2 operator slice):
     engine, compiled from the JAX package's source at first use.
   - L4' factorization: `lu` — multifrontal LU with threshold pivoting
     inside fronts, the level-scheduled LU below `config.mf_min_n`, and the
-    host engine's exact partial pivoting as the fallback.
-  - L5' solvers: batched triangular solves (`*solve_multi`) and the
-    `lusol_serve` handle (float32 sweeps + float64 refinement on device).
+    host engine's exact partial pivoting as the fallback; `chol` —
+    multifrontal Cholesky (recursive skeleton), the level-scheduled
+    Cholesky with its dense tail below `config.mf_min_n`. Factors are
+    float64.
+  - L5' solvers: the single-RHS triangular solves (`lsolve`, `ltsolve`,
+    `usolve`, `utsolve`) and their batched forms (`*solve_multi`); the
+    `lusol` and `cholsol` solvers (multifrontal one-shot with f64
+    refinement on device, host-exact escape); the `lusol_serve` and
+    `cholsol_serve` handles (float32 sweeps + float64 refinement on
+    device).
 
 The device-facing entry points take an explicit `device` argument, which
 defaults to the card ("cuda").
@@ -50,14 +58,21 @@ from .ops import (
 from .solve import (
     TriPlan,
     tri_plan,
+    lsolve,
+    ltsolve,
+    usolve,
+    utsolve,
     lsolve_multi,
     ltsolve_multi,
     usolve_multi,
     utsolve_multi,
+    lusol,
+    cholsol,
     lusol_serve,
+    cholsol_serve,
 )
 from .symbolic import schol, sqr
-from .factor import lu
+from .factor import chol, lu
 from .convert import sprs_from_fields, symb_from_fields
 
 __all__ = [
@@ -68,8 +83,9 @@ __all__ = [
     "scpmat", "scxmat", "permute", "symperm", "ipvec", "pvec", "pinvert",
     "fkeep", "sprs_print",
     "TriPlan", "tri_plan",
+    "lsolve", "ltsolve", "usolve", "utsolve",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
-    "lusol_serve",
-    "schol", "sqr", "lu",
+    "lusol", "cholsol", "lusol_serve", "cholsol_serve",
+    "schol", "sqr", "chol", "lu",
     "sprs_from_fields", "symb_from_fields",
 ]

@@ -2,9 +2,9 @@
 
 Mirrors the reference's `Error` enum (reference: src/lib.rs:188-205):
 `NotPositiveDefinite` raised by Cholesky (src/lib.rs:325-328), `NoPivot`
-raised by LU (src/lib.rs:584-586). Device kernels signal failure through a
-scalar flag reduced to host (NaN-poisoning inside jit), and the host driver
-raises the corresponding Python exception.
+raised by LU (src/lib.rs:584-586). Device factorizations signal failure
+through a scalar (the smallest pivot, or a pivot margin) read back once,
+and the caller raises the corresponding Python exception.
 """
 
 

@@ -1,22 +1,91 @@
-"""L4' numeric factorization: lu.
+"""L4' numeric factorization: chol and lu.
 
 Dispatch between the device path (torch on the caller's device: the
-multifrontal LU, or the level-scheduled LU below `config.mf_min_n`) and the
-native host engine (C++, reference-exact, used for `config.backend ==
-"host"` and as the fallback when device pivoting is rejected). `chol` and
-`qr` arrive with their slices.
+multifrontal Cholesky and LU, or the level-scheduled ones below
+`config.mf_min_n`) and the native host engine (C++, reference-exact, used
+for `config.backend == "host"` and as the LU fallback when device pivoting
+is rejected). The port factors in float64 on every route. `qr` arrives
+with its slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import config
 from ..data import Nmrc, Sprs, Symb
 from ..symbolic import native
+from .chol_device import chol_device
 from .lu_device import lu_device
 
-__all__ = ["lu"]
+__all__ = ["chol", "lu"]
+
+
+def _values_fp(a: Sprs):
+    """Cheap value fingerprint for caches keyed on A's values (sym reuse
+    with refreshed values must rebuild them; O(nnz) hash per call)."""
+    nz = a.nnz()
+    return (nz, hash(np.ascontiguousarray(a.x[:nz]).tobytes()))
+
+
+def chol(a: Sprs, s: Symb, *, device="cuda") -> Nmrc:
+    """L = chol(A) given `schol` analysis (reference src/lib.rs:278-337).
+
+    Factors triu(PAP') in float64 on `device` (multifrontal at or above
+    `config.mf_min_n` when the plan applies, level-scheduled otherwise);
+    L's values come back as a tensor on `device`. Raises
+    NotPositiveDefiniteError if A is not SPD. `s._chol_route` records the
+    route taken ("device_mf", "device_level" or "host").
+
+    >>> from rsparse_tpu_torch import Sprs, schol
+    >>> from rsparse_tpu_torch.factor import chol
+    >>> a = Sprs.new_from_vec([[4.0, 2.0], [2.0, 5.0]])
+    >>> nm = chol(a, schol(a, 0), device="cpu")
+    >>> [round(float(v), 6) for v in nm.l.x[: nm.l.nnz()]]  # L: [2,1;0,2]
+    [2.0, 1.0, 2.0]
+    """
+    from ..symbolic import _symperm_host
+
+    n = a.n
+    dev = torch.device(device)
+    if s.pinv is not None:
+        # value-fingerprint cache: warm re-solves with unchanged values
+        # (sym reuse) skip the O(nnz) symperm rebuild
+        fp = _values_fp(a)
+        hit = s.__dict__.get("_symperm_cache")
+        if hit is not None and hit[0] == fp:
+            c = hit[1]
+        else:
+            c = _symperm_host(a, s.pinv)
+            s.__dict__["_symperm_cache"] = (fp, c)
+    else:
+        c = a
+    if config.backend == "host":
+        mfp = getattr(s, "_mf_plan", None)
+        if mfp is not None and not isinstance(mfp, str):
+            # host factors invalidate the device front cache
+            mfp.__dict__.pop("_cache_tree", None)
+        Lp, Li, Lx = native.chol_numeric(n, c.p, c.i[: c.nnz()],
+                                         c.x[: c.nnz()], s.parent, s.cp)
+        s._chol_route = "host"
+    else:
+        from .frontal import build_mf_plan, chol_mf
+
+        mfp = getattr(s, "_mf_plan", "unset")
+        if isinstance(mfp, str):
+            mfp = build_mf_plan(c, s) if n >= config.mf_min_n else None
+            s._mf_plan = mfp
+        if mfp is not None:
+            Lp, Li, Lx = chol_mf(c, s, mfp, dev)
+            s._chol_route = "device_mf"
+        else:
+            Lp, Li, Lx = chol_device(c, s, dev)
+            s._chol_route = "device_level"
+    nm = Nmrc()
+    nm.l = Sprs(int(s.cp[n]), n, n, Lp, Li, None)
+    nm.l.x = torch.as_tensor(Lx, device=dev)
+    return nm
 
 
 def lu(a: Sprs, s: Symb, tol: float, *, device="cuda") -> Nmrc:

@@ -39,6 +39,12 @@ batched front LU is a loop over pivot columns of batched tensor ops, the
 blocks around it are batched triangular solves and matmuls, and the
 extend-add is `index_add_`. torch scatters have no drop mode, so every
 scatter map is range-checked when its device tensor is made.
+
+Solves (`_solve_lu_mf_dev`, on the factors' device) walk the same tree
+with the cached factors: batched triangular solves with each bucket's
+Lss/Uss and matmuls with LB/UB, the inner skeleton by recursion, by two
+dense triangular solves (dense skeleton), or by two SpTRSV sweeps
+(`ops.sptrsv_cuda`, the CUDA kernel on the card) of a level-LU skeleton.
 """
 
 from __future__ import annotations
@@ -871,3 +877,93 @@ def lu_mf(a: Sprs, s: Symb, plan: LUMFPlan, tol: float, device):
     else:
         pinv = einv.copy()
     return (plan.Lp, Li, Lx[: plan.lnz], plan.Up, Ui, Ux[: plan.unz], pinv)
+
+
+# ---------------------------------------------------------------------------
+# Multifrontal LU solves: dense front triangular solves + the innermost
+# skeleton (dense LU, or SpTRSV sweeps of a level-LU skeleton)
+# ---------------------------------------------------------------------------
+
+
+def _lu_fwd_front(X, Ds, Lss, LB, srow, br_skel):
+    """L forward, front phase (in place). X is in full elimination order,
+    so the S window [aa..r] is already pivot-permuted: solve with Lss
+    directly and accumulate LB y into the skeleton delta Ds (pre-pivot
+    compact rows; garbage row ns)."""
+    ys = torch.linalg.solve_triangular(Lss, X[srow], upper=False,
+                                       unitriangular=True)
+    X[srow] = ys  # padded slots write row n (garbage)
+    Ds.index_add_(0, br_skel.reshape(-1), (LB @ ys).reshape(-1, X.shape[1]))
+
+
+def _lu_bwd_front(X, Uss, UB, srow, bc_glob):
+    """U backward, front phase (in place): x_S = Uss^{-1} (y_S - UB x_Bc)."""
+    X[srow] = torch.linalg.solve_triangular(
+        Uss, X[srow] - UB @ X[bc_glob], upper=True)
+
+
+def _lu_skel_tri_plans(plan: LUMFPlan):
+    """Sweep schedules for a level-LU skeleton's L (kind 0) and U (kind 1),
+    cached on the plan."""
+    from ..solve import tri_plan
+
+    tp = plan.__dict__.get("_skel_tri")
+    if tp is None:
+        sp = plan.skel_plan
+        ns = len(plan.skel)
+        lsk = Sprs(sp.lnz, ns, ns, sp.Lp, sp.Li, np.zeros(sp.lnz))
+        usk = Sprs(sp.unz, ns, ns, sp.Up, sp.Ui, np.zeros(sp.unz))
+        tp = (tri_plan(lsk, 0), tri_plan(usk, 1))
+        plan.__dict__["_skel_tri"] = tp
+    return tp
+
+
+def _solve_dev(plan: LUMFPlan, device) -> dict:
+    """Index tensors the solve reads at this layer, made once per device
+    (the JAX package's `_prep_lu_solve_indices` + `_collect_lu_sdev`)."""
+
+    def make():
+        ns, n = len(plan.skel), plan.n
+        ix = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+        return {
+            "buckets": [(ix(b.srow), ix(b.br_skel), ix(np.where(
+                b.bc_skel < ns, plan.skel[np.clip(b.bc_skel, 0, ns - 1)], n)))
+                for b in plan.buckets],
+            "skel_idx": ix(plan.skel),
+        }
+
+    return device_cache(plan, "_torch_solve_dev", device, make)
+
+
+def _solve_lu_mf_dev(plan: LUMFPlan, X: torch.Tensor, cache) -> torch.Tensor:
+    """Recursive device core: X [n, B] (elimination order) ->
+    U^{-1} L^{-1} X."""
+    from ..ops.sptrsv_cuda import sptrsv_multi
+
+    fronts, Lxs, Uxs, sub_cache, elim_inner = cache
+    ns, n = len(plan.skel), plan.n
+    sdev = _solve_dev(plan, X.device)
+    Xd = torch.cat([X, X.new_zeros((1, X.shape[1]))])
+    Ds = X.new_zeros((ns + 1, X.shape[1]))
+    for (Lss, _, LB, _, _), (srow, br_skel, _) in zip(fronts, sdev["buckets"]):
+        _lu_fwd_front(Xd, Ds, Lss, LB, srow, br_skel)
+    skel_idx = sdev["skel_idx"]
+    # Ds is accumulated at PRE-PIVOT compact rows; the inner solve consumes
+    # inner-elimination order, so convert with the composed inner perm
+    bs = Xd[skel_idx] - Ds[:ns][elim_inner]
+    sp = plan.skel_plan
+    if isinstance(sp, LUMFPlan):  # recursive layer
+        ys = _solve_lu_mf_dev(sp, bs, sub_cache)
+    elif isinstance(sp, DenseSkelPlan):
+        LUd = Lxs[: ns * ns].reshape(ns, ns)
+        ys = torch.linalg.solve_triangular(LUd.tril(-1), bs, upper=False,
+                                           unitriangular=True)
+        ys = torch.linalg.solve_triangular(LUd.triu(), ys, upper=True)
+    else:
+        p0, p1 = _lu_skel_tri_plans(plan)
+        ys = sptrsv_multi(Uxs, sptrsv_multi(Lxs, bs, p0, 0), p1, 1)
+    Xd[skel_idx] = ys
+    for (_, Uss, _, UB, _), (srow, _, bc_glob) in zip(
+            reversed(fronts), reversed(sdev["buckets"])):
+        _lu_bwd_front(Xd, Uss, UB, srow, bc_glob)
+    return Xd[:n]

@@ -1,10 +1,26 @@
-"""L5' solvers: batched triangular solves and the `lusol_serve` handle.
+"""L5' solvers: triangular solves, the lusol/cholsol solvers and the
+serve handles.
 
 Triangular solves run as level-scheduled sweeps: the column DAG of a
 triangular factor becomes *level sets* (host, native C++), and one sweep
 walks the levels in order, all columns of a level at once. On a CUDA tensor
 the sweep is the hand-written kernel of `ops.sptrsv_cuda`; on a CPU tensor
-it is that module's plain torch version.
+it is that module's plain torch version. The single-RHS solves
+(`lsolve`, ...) run one sweep with B = 1 (or the native engine with
+`config.backend == "host"`); the batched ones (`lsolve_multi`, ...) one
+sweep over all columns.
+
+`lusol` and `cholsol` keep the reference's signatures, `order`/`tol`
+semantics, error types and in-place overwrite of `b`. At or above
+`config.mf_min_n` each first runs a one-shot on the device: the
+multifrontal factorization, its front solves and early-exit f64 iterative
+refinement (`_lu_one_shot`, `_chol_one_shot`), with the host engine's
+exact factors as the escape when refinement falls short. Below it, or
+when the multifrontal plan does not apply or LU's pivot margin rejects the
+static pivots, they factor with `factor.lu`/`factor.chol` and run the
+single-RHS solves. `lusol_serve`/`cholsol_serve` build a device-resident
+handle for batches of right-hand sides: float32 sweeps of the whole
+factor through the kernel plus f64 refinement.
 
 Conventions preserved from the reference:
   - L: the diagonal is the FIRST entry of each column (src/lib.rs:425-427).
@@ -21,15 +37,19 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .data import Sprs, Symb
-from .ops.plan import col_ids
+from . import ops
+from .config import config
+from .data import Nmrc, Sprs, Symb
+from .factor import _values_fp
+from .ops.plan import col_ids, device_cache
 from .ops.sptrsv_cuda import sptrsv_multi
 from .symbolic import native
 
 __all__ = [
     "TriPlan", "DenseSplit", "tri_plan",
+    "lsolve", "ltsolve", "usolve", "utsolve",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
-    "lusol_serve",
+    "lusol", "cholsol", "lusol_serve", "cholsol_serve",
 ]
 
 
@@ -304,6 +324,107 @@ def utsolve_multi(u: Sprs, X, plan: Optional[TriPlan] = None, *, device=None):
 
 
 # ---------------------------------------------------------------------------
+# Single-RHS triangular solves
+# ---------------------------------------------------------------------------
+
+
+def _writable(a: np.ndarray) -> np.ndarray:
+    """`a` itself if it is a writable ndarray, else a copy (a numpy view of
+    a tensor or of a caller's buffer may be read-only)."""
+    return a if a.flags.writeable else a.copy()
+
+
+def _host_values(v) -> np.ndarray:
+    """A factor's values as a host array (they may be a tensor on a card)."""
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _tri_solve(t: Sprs, x, kind: int, plan: Optional[TriPlan] = None,
+               device="cuda") -> np.ndarray:
+    """One RHS: the native engine when `config.backend == "host"`, else one
+    SpTRSV sweep with B = 1 on `device`, in the factor's dtype. Returns a
+    new writable host array."""
+    nz = t.nnz()
+    if config.backend == "host":
+        xv = np.array(x, dtype=np.float64)  # the engine solves in place
+        fn = [native.lsolve_host, native.usolve_host, native.ltsolve_host,
+              native.utsolve_host][kind]
+        fn(t.n, t.p, t.i[:nz], _host_values(t.x[:nz]), xv)
+        return xv
+    p = plan or tri_plan(t, kind)
+    dev = torch.device(device)
+    tx = torch.as_tensor(t.x[:nz], device=dev)
+    X = torch.as_tensor(np.array(x, dtype=np.float64), device=dev)
+    return sptrsv_multi(tx, X.to(tx.dtype)[:, None], p, kind)[:, 0].cpu().numpy()
+
+
+def _writeback(x_obj, sol: np.ndarray):
+    """Mirror the reference's in-place overwrite of b where possible."""
+    if isinstance(x_obj, list):
+        # list slice-assign GROWS when sol is longer — the reference's
+        # Vec resize semantics (underdetermined qrsol returns n > m values)
+        x_obj[: len(sol)] = [float(v) for v in sol]
+    elif (isinstance(x_obj, np.ndarray) and x_obj.flags.writeable
+          and len(sol) <= len(x_obj)):
+        # a fixed-size ndarray cannot grow; when the solution is longer
+        # (underdetermined qrsol) the caller gets it from the return value
+        x_obj[: len(sol)] = sol
+    return x_obj if isinstance(x_obj, (list, np.ndarray)) else sol
+
+
+def lsolve(l: Sprs, x, *, device="cuda"):
+    """Solve Lx=b, diag first entry per column (reference src/lib.rs:464-471).
+
+    >>> from rsparse_tpu_torch import Sprs, lsolve
+    >>> l = Sprs.new_from_vec([[2.0, 0.0], [1.0, 4.0]])
+    >>> [round(float(v), 6) for v in lsolve(l, [2.0, 5.0], device="cpu")]
+    [1.0, 1.0]
+    """
+    sol = _tri_solve(l, x, 0, device=device)
+    _writeback(x, sol)
+    return sol
+
+
+def ltsolve(l: Sprs, x, *, device="cuda"):
+    """Solve L'x=b (reference src/lib.rs:505-512).
+
+    >>> from rsparse_tpu_torch import Sprs, ltsolve
+    >>> l = Sprs.new_from_vec([[2.0, 0.0], [1.0, 4.0]])
+    >>> [round(float(v), 6) for v in ltsolve(l, [3.0, 4.0], device="cpu")]
+    [1.0, 1.0]
+    """
+    sol = _tri_solve(l, x, 2, device=device)
+    _writeback(x, sol)
+    return sol
+
+
+def usolve(u: Sprs, x, *, device="cuda"):
+    """Solve Ux=b, diag last entry per column (reference src/lib.rs:1230-1237).
+
+    >>> from rsparse_tpu_torch import Sprs, usolve
+    >>> u = Sprs.new_from_vec([[2.0, 1.0], [0.0, 4.0]])
+    >>> [round(float(v), 6) for v in usolve(u, [3.0, 4.0], device="cpu")]
+    [1.0, 1.0]
+    """
+    sol = _tri_solve(u, x, 1, device=device)
+    _writeback(x, sol)
+    return sol
+
+
+def utsolve(u: Sprs, x, *, device="cuda"):
+    """Solve U'x=b (reference src/lib.rs:1271-1278).
+
+    >>> from rsparse_tpu_torch import Sprs, utsolve
+    >>> u = Sprs.new_from_vec([[2.0, 1.0], [0.0, 4.0]])
+    >>> [round(float(v), 6) for v in utsolve(u, [2.0, 5.0], device="cpu")]
+    [1.0, 1.0]
+    """
+    sol = _tri_solve(u, x, 3, device=device)
+    _writeback(x, sol)
+    return sol
+
+
+# ---------------------------------------------------------------------------
 # Serving handle
 # ---------------------------------------------------------------------------
 
@@ -317,6 +438,33 @@ def _host_spmm(a: Sprs, X: np.ndarray) -> np.ndarray:
     return R
 
 
+def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor):
+    """X -> A @ X for the COO matrix (Mi, Mj, Mx) (f64 residuals)."""
+    return lambda X: torch.zeros_like(X).index_add_(0, Mi, Mx[:, None] * X[Mj])
+
+
+def _refine(solve_once, amul, B64: torch.Tensor, steps: int):
+    """X = solve_once(B64), then up to `steps` steps of f64 iterative
+    refinement against `amul`, keeping the best iterate and stopping once
+    converged (max|r| <= 1e-13 max(1, max|B|)) or stagnant. Reads max|r|
+    back once per step. Returns (X, max|r| as a float)."""
+    X = solve_once(B64)
+    r = B64 - amul(X)
+    rmax = float(r.abs().max())
+    scale = max(float(B64.abs().max()), 1.0)
+    # well-conditioned systems exit after one check; weak static-pivot
+    # factors (element growth) get the extra contractions they need
+    k, prev = 0, float("inf")
+    while k < steps and rmax > 1e-13 * scale and rmax < prev:
+        X2 = X + solve_once(r)
+        r2 = B64 - amul(X2)
+        rmax2 = float(r2.abs().max())
+        if rmax2 < rmax:
+            X, r = X2, r2
+        prev, rmax, k = rmax, min(rmax2, rmax), k + 1
+    return X, rmax
+
+
 def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
                        device):
     """Build a device-resident batched solve handle `h(B[n, nrhs]) -> X`.
@@ -326,7 +474,8 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     X[i] = Xs[pout[i]] on the way out; None = identity). (Mi, Mj, Mx): COO
     of the f64 residual matrix in ORIGINAL row order — up to `refine`
     iterative-refinement steps run on device against it. The factor values
-    and index tensors stay on `device` across calls."""
+    and index tensors stay on `device` across calls; `h.chain` holds the
+    sweeps as (TriPlan, float32 values, kind)."""
     dev = torch.device(device)
     sweeps = [(plan, torch.as_tensor(vals, device=dev).to(torch.float32), kind)
               for plan, vals, kind in chain]
@@ -344,31 +493,16 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
         Xs = Z.to(torch.float64, memory_format=torch.contiguous_format)
         return Xs if pout_d is None else Xs[pout_d]
 
-    def amul(X):
-        return torch.zeros_like(X).index_add_(0, Mi_d, Mx_d[:, None] * X[Mj_d])
+    amul = _coo_amul(Mi_d, Mj_d, Mx_d)
 
     def handle(B):
         B64 = torch.as_tensor(B, device=dev).to(torch.float64)
-        X = solve_full(B64)
-        r = B64 - amul(X)
-        rmax = float(r.abs().max())
-        scale = max(float(B64.abs().max()), 1.0)
-        # early-exit refinement: up to `refine` steps, keep the best
-        # iterate, stop once converged or stagnant — well-conditioned
-        # systems exit after one check, weak static-pivot factors (element
-        # growth) get the extra contractions they need
-        k, prev = 0, float("inf")
-        while k < refine and rmax > 1e-13 * scale and rmax < prev:
-            X2 = X + solve_full(r)
-            r2 = B64 - amul(X2)
-            rmax2 = float(r2.abs().max())
-            if rmax2 < rmax:
-                X, r = X2, r2
-            prev, rmax, k = rmax, min(rmax2, rmax), k + 1
+        X, rmax = _refine(solve_full, amul, B64, refine)
         handle.last_residual = rmax
         return X
 
     handle.last_residual = None
+    handle.chain = sweeps
     return handle
 
 
@@ -451,3 +585,378 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
     h.build_seconds = {"analysis": t1 - t0, "factor": t2 - t1,
                        "probe": t3 - t2, "handle": t4 - t3}
     return h
+
+
+def cholsol_serve(a: Sprs, order: int = 0, *, sym: Optional[Symb] = None,
+                  refine: int = 8, device="cuda"):
+    """Device-resident batched SPD solve handle: `h(B[n, nrhs]) -> X` with
+    chol semantics (the factorization, and hence the refinement, uses the
+    symmetrized upper triangle of PAP', as the reference's cholsol does,
+    src/lib.rs:377-389; for symmetric A that is A).
+
+    One symbolic analysis + one f64 factorization on `device`, then every
+    `h(B)` call runs two float32 SpTRSV sweeps (L then L') and up to
+    `refine` early-exit steps of f64 iterative refinement against the
+    symmetrized matrix, on `device`. B may be a numpy array or a tensor; X
+    is an f64 tensor on `device`. `h.last_residual` holds the final
+    residual max, `h.factor_route` the factor's route (`s._chol_route`)
+    and `h.build_seconds` the wall time of each build phase. No reference
+    counterpart (the reference is single-RHS)."""
+    from .factor import chol
+    from .symbolic import schol
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    s = sym if sym is not None else schol(a, order)
+    t1 = time.perf_counter()
+    nm = chol(a, s, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    lx = nm.l.x[: nm.l.nnz()]
+    # P b enters as Bp[pinv[i]] = b[i] (ipvec) and leaves as x[i] =
+    # Xs[pinv[i]] (pvec): pin = pout = pinv in the handle's convention
+    pinv = np.asarray(s.pinv, np.int64) if s.pinv is not None else None
+    Mi, Mj, Mx = _sym_coo(a, s.pinv)
+    h = _make_serve_handle(
+        a.n, [(tri_plan(nm.l, 0), lx, 0), (tri_plan(nm.l, 2), lx, 2)],
+        pinv, pinv, Mi, Mj, Mx, refine, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    h.sym = s
+    h.factor_route = s._chol_route
+    h.build_seconds = {"analysis": t1 - t0, "factor": t2 - t1,
+                       "handle": time.perf_counter() - t2}
+    return h
+
+
+# ---------------------------------------------------------------------------
+# A\b solvers (reference src/lib.rs:377-389, 672-683)
+# ---------------------------------------------------------------------------
+
+
+def _lu_refine_body(plan, n: int, B64: torch.Tensor, cache, Mi, Mj, Mx,
+                    pin: torch.Tensor, q: Optional[torch.Tensor],
+                    steps: int):
+    """MF-LU solve of B64 [n, nrhs] on its device, then up to `steps`
+    early-exit keep-best f64 refinement steps against the COO matrix
+    (Mi, Mj, Mx) in original row order. pin: row permutation (Z[pin[i]] =
+    R[i]); q: column permutation (X[q[i]] = Y[i]) or None. Returns
+    (X [n, nrhs] f64, max|r|, max|X|), the last two as floats."""
+    from .factor.frontal_lu import _solve_lu_mf_dev
+
+    ft = cache[1].dtype
+
+    def solve_once(R):  # original row order -> original column order
+        Z = torch.zeros_like(R).index_copy_(0, pin, R)
+        Y = _solve_lu_mf_dev(plan, Z.to(ft), cache).to(torch.float64)
+        return Y if q is None else torch.zeros_like(Y).index_copy_(0, q, Y)
+
+    X, rmax = _refine(solve_once, _coo_amul(Mi, Mj, Mx), B64, steps)
+    return X, rmax, float(X.abs().max())
+
+
+def _lu_mf_solve_fused(a: Sprs, s, pinv: np.ndarray, mfp, Bm: np.ndarray,
+                       steps: int):
+    """The MF-LU solve + up to `steps` f64 refinement steps on the device
+    of the factors cached by the last `lu_mf` (`_lu_refine_body`), ending
+    in one readback of X. Returns (X [n, nrhs], final residual max,
+    max|X|); the caller checks the residual and takes the host engine's
+    exact factors when refinement fell short."""
+    tree = mfp.__dict__["_cache_tree"]
+    dev = tree[1].device
+    n, nz = a.n, a.nnz()
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+    Mi, Mj = device_cache(mfp, "_fused_solve_pattern", dev, lambda: (
+        ix(a.i[:nz]), ix(col_ids(a.p, n))))
+    # values and permutations refresh per call (sym reuse changes values;
+    # pivoting can change pinv); the pattern tensors stay on the plan
+    Mx = torch.as_tensor(np.asarray(a.x[:nz], np.float64), device=dev)
+    q = ix(s.q) if s.q is not None else None
+    B64 = torch.as_tensor(np.asarray(Bm, np.float64), device=dev)
+    X, rmax, xmax = _lu_refine_body(mfp, n, B64, tree, Mi, Mj, Mx, ix(pinv),
+                                    q, steps)
+    return X.cpu().numpy(), rmax, xmax
+
+
+def _lu_one_shot(a: Sprs, s, Bm: np.ndarray, tol: float, steps: int = 10,
+                 device="cuda"):
+    """The whole pivoting-LU solve on `device`: the multifrontal
+    factorization (threshold pivoting inside fronts, the pivot perms
+    composed on the host after one readback, `lu_mf`), then the tree
+    solves and up to `steps` early-exit f64 refinement steps
+    (`_lu_mf_solve_fused`: the JAX package's 4 device steps and 6 host
+    steps as one loop on the device).
+
+    The reference tol rule (src/lib.rs:587-589) is enforced by `lu_mf`'s
+    accept rule: a zero pivot, or a worst pivot margin below 1e-10, sets
+    `s._static_rejected` and returns None, so the caller falls through to
+    the host engine's exact partial pivoting. Returns (X [n, nrhs] f64,
+    rmax, xmax) on acceptance, with the factor tree cached on the plan;
+    None below `config.mf_min_n` or without a plan."""
+    from .errors import NoPivotError
+    from .factor.frontal_lu import build_lu_mf_plan, lu_mf
+
+    if a.n < config.mf_min_n or getattr(s, "_static_rejected", False):
+        return None
+    mfp = getattr(s, "_mf_lu_plan", "unset")
+    if isinstance(mfp, str):
+        try:
+            mfp = build_lu_mf_plan(a, s)
+        except (NoPivotError, ValueError):
+            mfp = None
+        s._mf_lu_plan = mfp
+    if mfp is None:
+        return None
+    out = lu_mf(a, s, mfp, tol, torch.device(device))
+    if out is None:
+        s._static_rejected = True
+        return None
+    s._lu_route = "device_mf"
+    return _lu_mf_solve_fused(a, s, out[-1], mfp, Bm, steps)
+
+
+def _host_lu(a: Sprs, s, tol: float) -> Nmrc:
+    """The host engine's exact LU with partial pivoting (the reference's
+    pivot sequence), its values host arrays."""
+    n, nz = a.n, a.nnz()
+    Lp, Li, Lx, Up, Ui, Ux, pinv = native.lu_numeric(
+        n, a.p, a.i[:nz], a.x[:nz], s.q, tol, s.lnz, s.unz)
+    nm = Nmrc()
+    nm.l = Sprs(len(Lx), n, n, Lp, Li, Lx)
+    nm.u = Sprs(len(Ux), n, n, Up, Ui, Ux)
+    nm.pinv = pinv
+    return nm
+
+
+def _refined(rmax: float, b: np.ndarray, xmax: float) -> bool:
+    """Whether a one-shot's refined residual reached 1e-10 of its scale."""
+    return rmax <= 1e-10 * max(float(np.abs(b).max()), xmax, 1.0)
+
+
+def lusol(a: Sprs, b, order: int = 1, tol: float = 1e-6,
+          *, sym: Optional[Symb] = None, device="cuda"):
+    """x = A\\b via LU with partial pivoting; b overwritten with the solution
+    (reference src/lib.rs:672-683).
+
+    `sym` (extension): reuse a previous `sqr(a, order, False)` analysis
+    (and its device plans) across solves with the same sparsity pattern.
+    `device`: where the factorization and solves run. When the device
+    one-shot's refinement falls short, the host engine factors instead
+    (`s._lu_route` reads "host_exact") and the solves stay on `device`.
+
+    >>> from rsparse_tpu_torch import Sprs, lusol
+    >>> a = Sprs.new_from_vec([[2.0, 1.0], [4.0, 5.0]])
+    >>> [round(float(v), 6) for v in lusol(a, [3.0, 9.0], 1, 1e-6, device="cpu")]
+    [1.0, 1.0]
+    """
+    from .factor import lu
+    from .symbolic import sqr
+
+    n = a.n
+    s = sym if sym is not None else sqr(a, order, False)
+    bb = np.asarray(b, dtype=np.float64)
+    nm = None
+    if config.backend != "host":
+        shot = _lu_one_shot(a, s, bb[:, None], tol, device=device)
+        if shot is not None:
+            X, rmax, xmax = shot
+            if _refined(rmax, bb, xmax):
+                out = _writable(X[:, 0])
+                _writeback(b, out)
+                return out
+            # growth or conditioning the pivot margin did not catch
+            nm = _host_lu(a, s, tol)
+            s._lu_route = "host_exact"
+    if nm is None:
+        nm = lu(a, s, tol, device=device)
+    x = np.zeros(n, dtype=np.float64)
+    ops.ipvec(n, nm.pinv, bb, x)  # x = P*b
+    x = _tri_solve(nm.l, x, 0, device=device)  # x = L\x
+    x = _tri_solve(nm.u, x, 1, device=device)  # x = U\x
+    out = np.zeros(n, dtype=np.float64)
+    ops.ipvec(n, s.q, x, out)  # b = Q*x
+    _writeback(b, out)
+    return out
+
+
+def _sym_maps(a: Sprs, pinv):
+    """Host maps of C = triu(PAP') (reference symperm, src/lib.rs:2369-2408)
+    and of the symmetrized matrix chol factors: (perm, Mi, Mj, mxmap) with
+    C.x = A.x[perm], and the COO (Mi, Mj) in ORIGINAL row order with values
+    A.x[mxmap] (C mirrored below its diagonal)."""
+    from .ops.plan import symperm_plan
+
+    sp_ = symperm_plan(a, pinv)
+    perm = np.asarray(sp_.perm, np.int64)
+    ci = np.asarray(sp_.out_i, np.int64)
+    cj = col_ids(sp_.out_p, a.n)
+    offd = ci != cj
+    Mi = np.concatenate([ci, cj[offd]])
+    Mj = np.concatenate([cj, ci[offd]])
+    mxmap = np.concatenate([perm, perm[offd]])
+    if pinv is not None:
+        porder = np.argsort(np.asarray(pinv, np.int64))
+        Mi, Mj = porder[Mi], porder[Mj]
+    return perm, Mi, Mj, mxmap
+
+
+def _sym_coo(a: Sprs, pinv):
+    """COO (original row order) of the SYMMETRIZED matrix chol factors —
+    triu(PAP') mirrored below the diagonal (reference cholsol semantics:
+    symperm keeps triu). Every chol-family refinement residual targets
+    this matrix, not the full stored A (which may differ below the
+    diagonal)."""
+    _, Mi, Mj, mxmap = _sym_maps(a, pinv)
+    return Mi, Mj, np.asarray(a.x[: a.nnz()], np.float64)[mxmap]
+
+
+def _chol_oneshot_maps(a: Sprs, s, device):
+    """Cached maps of the one-shot SPD solve on `device`: `perm` takes A's
+    values onto the system the MF plan was built on (C = triu(PAP') with an
+    ordering, A as stored for natural order: chol reads only its triu
+    entries), `mxmap` gathers the symmetrized residual values from A.x, and
+    the residual's (Mi, Mj) and pinv as device tensors. Pattern work done
+    once per Symb; per call only two gathers remain."""
+
+    def make():
+        perm, Mi, Mj, mxmap = _sym_maps(a, s.pinv)
+        if s.pinv is None:
+            perm = np.arange(a.nnz(), dtype=np.int64)
+        ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+        return (perm, mxmap, ix(Mi), ix(Mj),
+                ix(s.pinv) if s.pinv is not None else None)
+
+    return device_cache(s, "_oneshot_maps", device, make)
+
+
+def _chol_values(a: Sprs, s, mfp, device):
+    """(Cx, Mx) on `device`: the factor input and the residual values,
+    cached on the plan while A's values are unchanged (repeated solves
+    with sym reuse skip the gathers and uploads)."""
+    fp = _values_fp(a)
+    hit = mfp.__dict__.get("_oneshot_vals")
+    if hit is None or hit[0] != (fp, str(device)):
+        perm, mxmap = _chol_oneshot_maps(a, s, device)[:2]
+        ax = np.asarray(a.x[: a.nnz()], np.float64)
+        hit = ((fp, str(device)), torch.as_tensor(ax[perm], device=device),
+               torch.as_tensor(ax[mxmap], device=device))
+        mfp.__dict__["_oneshot_vals"] = hit
+    return hit[1], hit[2]
+
+
+def _chol_mf_solve_fused(a: Sprs, s, mfp, Bm: np.ndarray, steps: int):
+    """Cholesky mirror of `_lu_mf_solve_fused`: ipvec, the MF tree solves
+    of the factors cached by the last factorization and up to `steps`
+    early-exit f64 refinement steps against the SYMMETRIZED matrix chol
+    factored (`_sym_coo`), on the factor tree's device, ending in one
+    readback of X. Returns (X, rmax, xmax)."""
+    from .factor.frontal import _solve_mf_dev
+
+    tree = mfp.__dict__["_cache_tree"]
+    dev = tree[1].device
+    _, _, Mi, Mj, p = _chol_oneshot_maps(a, s, dev)
+    _, Mx = _chol_values(a, s, mfp, dev)
+    ft = tree[1].dtype
+
+    def solve_once(R):  # original order in and out
+        Z = R if p is None else torch.zeros_like(R).index_copy_(0, p, R)
+        Y = _solve_mf_dev(mfp, Z.to(ft), tree).to(torch.float64)
+        return Y if p is None else Y[p]
+
+    B64 = torch.as_tensor(np.asarray(Bm, np.float64), device=dev)
+    X, rmax = _refine(solve_once, _coo_amul(Mi, Mj, Mx), B64, steps)
+    return X.cpu().numpy(), rmax, float(X.abs().max())
+
+
+def _chol_one_shot(a: Sprs, s, Bm: np.ndarray, steps: int = 10,
+                   device="cuda"):
+    """The whole SPD solve on `device`: the permuted values, the
+    multifrontal factorization (its smallest pivot read back once:
+    NotPositiveDefiniteError when it is not positive), then the tree solves
+    and up to `steps` early-exit f64 refinement steps
+    (`_chol_mf_solve_fused`). Returns (X [n, nrhs] f64, rmax, xmax) with
+    the factor tree cached on the plan, or None below
+    `config.mf_min_n` or when no multifrontal plan applies."""
+    from .factor.frontal import _chol_mf_factor, build_mf_plan
+    from .symbolic import _symperm_host
+
+    if a.n < config.mf_min_n:
+        return None
+    mfp = getattr(s, "_mf_plan", "unset")
+    if isinstance(mfp, str):
+        c = _symperm_host(a, s.pinv) if s.pinv is not None else a
+        mfp = build_mf_plan(c, s)
+        s._mf_plan = mfp
+    if mfp is None:
+        return None
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:  # the factors' device
+        dev = torch.device("cuda", torch.cuda.current_device())
+    _chol_mf_factor(_chol_values(a, s, mfp, dev)[0], mfp)
+    s._chol_route = "device_mf"
+    return _chol_mf_solve_fused(a, s, mfp, Bm, steps)
+
+
+def _host_chol(a: Sprs, s) -> Nmrc:
+    """The host engine's exact Cholesky of triu(PAP'), its values a host
+    array."""
+    from .symbolic import _symperm_host
+
+    n = a.n
+    c = _symperm_host(a, s.pinv) if s.pinv is not None else a
+    Lp, Li, Lx = native.chol_numeric(n, c.p, c.i[: c.nnz()],
+                                     c.x[: c.nnz()], s.parent, s.cp)
+    nm = Nmrc()
+    nm.l = Sprs(len(Lx), n, n, Lp, Li, Lx)
+    return nm
+
+
+def cholsol(a: Sprs, b, order: int = 0, *, sym: Optional[Symb] = None,
+            device="cuda"):
+    """x = A\\b for SPD A via Cholesky; b overwritten with the solution
+    (reference src/lib.rs:377-389). Raises NotPositiveDefiniteError.
+
+    `sym` (extension): pass a Symb from a previous `schol(a, order)` to
+    reuse the ordering and the device plans across solves with the same
+    sparsity pattern. `device`: where the factorization and solves run.
+    When the device one-shot's refinement falls short, the host engine
+    factors instead (`s._chol_route` reads "host_exact") and the solves
+    stay on `device`.
+
+    >>> from rsparse_tpu_torch import Sprs, cholsol
+    >>> a = Sprs.new_from_vec([[4.0, 1.0], [1.0, 3.0]])
+    >>> b = [6.0, 5.0]
+    >>> [round(float(v), 6) for v in cholsol(a, b, 0, device="cpu")]
+    [1.181818, 1.272727]
+    >>> [round(v, 6) for v in b]  # b overwritten, reference semantics
+    [1.181818, 1.272727]
+    """
+    from .factor import chol
+    from .symbolic import schol
+
+    n = a.n
+    s = sym if sym is not None else schol(a, order)
+    bb = np.asarray(b, dtype=np.float64)
+    nm = None
+    if config.backend != "host":
+        shot = _chol_one_shot(a, s, bb[:, None], device=device)
+        if shot is not None:
+            X, rmax, xmax = shot
+            if _refined(rmax, bb, xmax):
+                out = _writable(X[:, 0])
+                _writeback(b, out)
+                return out
+            # the device tree cannot recover this system
+            nm = _host_chol(a, s)
+            s._chol_route = "host_exact"
+    if nm is None:
+        nm = chol(a, s, device=device)
+    x = np.zeros(n, dtype=np.float64)
+    ops.ipvec(n, s.pinv, bb, x)  # x = P*b
+    x = _tri_solve(nm.l, x, 0, device=device)  # x = L\x
+    x = _tri_solve(nm.l, x, 2, device=device)  # x = L'\x
+    out = np.zeros(n, dtype=np.float64)
+    ops.pvec(n, s.pinv, x, out)  # b = P'*x
+    _writeback(b, out)
+    return out

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain torch versions: the SpTRSV
 sweep (csrc/sptrsv.cu), the streaming SpMM (csrc/spmm.cu) and the DIA SpMV
-(csrc/spmv_dia.cu).
+(csrc/spmv_dia.cu); and the solvers that run the sweep (the single-RHS
+solves, lusol, cholsol, cholsol_serve) on the card against their CPU runs.
 
 This file imports neither jax nor the JAX package (only the numpy test
 matrix of bench.py), so it also runs on a machine with a card and no JAX:
@@ -134,6 +135,76 @@ def test_serve_handle_on_card():
     assert X.device.type == "cuda" and sptrsv_multi.launches >= before + 4
     want = rt.lusol_serve(a, 1, 1e-6, device="cpu")(B)
     assert _rel(X, want) < 1e-10
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,name", [(0, "lsolve"), (1, "usolve"),
+                                       (2, "ltsolve"), (3, "utsolve")])
+def test_single_rhs_solves_on_card(kind, name):
+    """The single-RHS solves launch the kernel once (B = 1, float64) and
+    agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t = _tri(kind)
+    b = np.random.default_rng(kind).standard_normal(t.n)
+    before = sptrsv_multi.launches
+    got = getattr(rt, name)(t, list(b), device="cuda")
+    assert sptrsv_multi.launches == before + 1
+    want = getattr(rt, name)(t, list(b), device="cpu")
+    assert np.abs(got - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["lusol", "cholsol", "cholsol_serve"])
+@pytest.mark.parametrize("mf_min_n,route", [(100, "device_mf"),
+                                            (10**9, "device_level")])
+def test_solvers_on_card(monkeypatch, solver, mf_min_n, route):
+    """lusol, cholsol and cholsol_serve on the card agree with their CPU
+    runs, on the multifrontal and the level routes (LU's level route may
+    take the host engine's exact pivoting)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
+    n, p, i, x = laplacian_5pt(20)
+    a = sprs_from_fields(n, n, p, i, x)
+    B = np.random.default_rng(2).standard_normal((n, 3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if solver == "cholsol_serve":
+            h = rt.cholsol_serve(a, 1, device=dev)
+            got = h(B).cpu().numpy()
+            r = h.factor_route
+        else:
+            s = rt.sqr(a, 1, False) if solver == "lusol" else rt.schol(a, 1)
+            fn = getattr(rt, solver)
+            args = (1, 1e-6) if solver == "lusol" else (1,)
+            got = np.stack([fn(a, B[:, j].copy(), *args, sym=s, device=dev)
+                            for j in range(3)], 1)
+            r = getattr(s, "_lu_route" if solver == "lusol" else "_chol_route")
+        out[dev] = (got, r)
+    assert out["cuda"][1] == out["cpu"][1]
+    assert out["cuda"][1] in ((route, "host") if solver == "lusol" else (route,))
+    want = out["cpu"][0]
+    assert np.abs(out["cuda"][0] - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mf_min_n", [100, 10**9])
+def test_error_contracts_on_card(monkeypatch, mf_min_n):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
+    n, p, i, x = laplacian_5pt(20)
+    x = x.copy()
+    x[p[7] + int(np.nonzero(i[p[7]: p[8]] == 7)[0][0])] = -4.0
+    with pytest.raises(rt.NotPositiveDefiniteError):
+        rt.cholsol(sprs_from_fields(n, n, p, i, x), np.ones(n), 1,
+                   device="cuda")
+    d = np.eye(6) * 3.0
+    d[:, 2] = 0.0
+    d[2, 4] = 1.0
+    with pytest.raises(rt.NoPivotError):
+        rt.lusol(rt.Sprs.new_from_vec(d), [1.0] * 6, 1, 1e-6, device="cuda")
 
 
 def _rand_sprs(m, n, nnz, seed):

@@ -243,6 +243,7 @@ def _device_entry_points():
             if inspect.isfunction(fn) and "device" in inspect.signature(fn).parameters:
                 found[f"{fn.__module__}.{name}"] = fn
     found["rsparse_tpu_torch.solve._tri_solve_multi"] = rt.solve._tri_solve_multi
+    found["rsparse_tpu_torch.solve._tri_solve"] = rt.solve._tri_solve
     return found
 
 
@@ -269,4 +270,6 @@ def test_default_device_covers_the_slice():
                      "usolve_multi", "utsolve_multi", "_tri_solve_multi",
                      "add", "multiply", "transpose", "gaxpy", "gaxpy_multi",
                      "norm", "scpmat", "scxmat", "permute", "symperm",
-                     "sprs_print", "spmm", "spmv", "spgemm_dia"}
+                     "sprs_print", "spmm", "spmv", "spgemm_dia",
+                     "lusol", "cholsol", "cholsol_serve", "chol", "lsolve",
+                     "ltsolve", "usolve", "utsolve", "_tri_solve"}
