@@ -59,7 +59,21 @@ them:
      sequential solves, at least 2 kernel launches per request; the
      handle's L-then-L' kernel pair against its plain version on one
      request; the L' (gather form) sweep's time beside its bound and a
-     cuSPARSE triangular solve; a profile of two requests.
+     cuSPARSE triangular solve; a profile of two requests;
+ 10. qrsol (main path 7): least squares on A = [A5; 0.1 I] (A5 the
+     lusol phase's matrix, m = 32,768, n = 16,384, a Tikhonov-regularised
+     mesh problem), order 2: `qrsol(A, b, 2, sym=s, device="cuda")` once
+     cold and three times warm (b a list once, an ndarray otherwise), each
+     held to the C++ engine's QR + apply on a fresh analysis and to the
+     least-squares gradient gate; then minimum norm on A' (16,384 x 32,768)
+     the same way, held to the C++ engine's minimum-norm recipe and its
+     residual (a list b grows to n values); every call's route must be the
+     device multifrontal one; walls beside one C++ factorization and apply
+     per call, the cold call's planner and factor seconds; `qrsol_ls` once
+     cold and once warm, held to qrsol; the R sweeps of a warm call of each
+     branch (kinds 1 and 3, float64, B = 1) replayed against their plain
+     version with their times, bounds and a cuSPARSE triangular solve; a
+     profile of one warm least-squares call.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -93,6 +107,7 @@ import subprocess
 import sys
 import time
 import warnings
+from typing import Optional
 
 import numpy as np
 
@@ -107,6 +122,8 @@ SPMM_N, SPMM_NNZ = 1 << 20, 5_200_000  # its arbitrary pattern (bench.py:628-629
 CHAIN = 50
 CHOL_GRID = 256  # the cholsol phases' Laplacian, n = CHOL_GRID**2
 ERR_GRID = 24  # the error contracts' small matrices
+QR_GRID = 128  # qrsol: A = [make_matrix(QR_GRID); 0.1 I], n = QR_GRID**2
+QR_REG = 0.1
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
@@ -407,7 +424,7 @@ def phase_kernels(a, seed: int, device: str = "cuda"):
         print_schedule(plan, kind, launch_config(plan, torch.float32, device),
                        secs)
         for dtype in (torch.float32, torch.float64):
-            tx = t.x[: t.nnz()].to(dtype)
+            tx = torch.as_tensor(t.x[: t.nnz()], dtype=dtype, device=device)
             for B in (NRHS, 2):
                 X = torch.as_tensor(rng.standard_normal((a.n, B)), dtype=dtype,
                                     device=device)
@@ -514,7 +531,8 @@ def sweep_pair_yardsticks(a, nm, rng, main: dict, device: str) -> None:
         nbytes += work[0]
         flops += work[1]
         levels.append(plan.nlev)
-        vals = t.x[: t.nnz()].to(torch.float32)
+        vals = torch.as_tensor(t.x[: t.nnz()], dtype=torch.float32,
+                               device=device)
         tp = transpose_plan(t)  # CSR of the CSC factor
         mats.append(torch.sparse_csr_tensor(ix(tp.out_p), ix(tp.out_i),
                                             vals[ix(tp.perm)], size=(n, n)))
@@ -1077,18 +1095,10 @@ def phase_cholsol(seed: int, device: str = "cuda"):
     return a, s, launches
 
 
-def replay_cholsol_sweeps(call) -> None:
-    """Every kernel sweep one cholsol call launches, recorded with its
-    inputs and replayed: the factorization's W = L_NN^-1 C(N, T) (float64,
-    B = the dense tail's width) and the solve's two B = 1 sweeps of L_NN
-    (kinds 0 and 2), when the innermost leading block is too large to
-    densify. Each distinct sweep is held against its plain version, and
-    its time printed beside its bound."""
-    import torch
-
+def record_sweeps(call) -> dict:
+    """Run call() with every SpTRSV kernel sweep recorded: {(plan, kind,
+    B): (values, X, plan, kind)}, the first launch of each, inputs cloned."""
     from rsparse_tpu_torch.ops import sptrsv_cuda
-    from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config,
-                                                   sptrsv_plain_multi)
 
     real, seen = sptrsv_cuda.sptrsv_multi, {}
 
@@ -1104,26 +1114,83 @@ def replay_cholsol_sweeps(call) -> None:
         call()
     finally:
         sptrsv_cuda.sptrsv_multi = real
-    if not seen:
-        print("cholsol: no sweep (the innermost leading block is dense)",
-              flush=True)
+    return seen
+
+
+def plan_csr(vals, plan):
+    """The triangle a sweep plan solves, as a CSR tensor on vals' device:
+    the plan's off-diagonal entries and diagonal, values gathered from
+    vals (for a cuSPARSE yardstick on the same factor)."""
+    import torch
+
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=vals.device)
+    rows = ix(np.concatenate([plan.ent_row, plan.col_id]))
+    cols = ix(np.concatenate([plan.ent_col, plan.col_id]))
+    pos = ix(np.concatenate([plan.ent_pos, plan.col_diag]))
+    return torch.sparse_coo_tensor(torch.stack([rows, cols]), vals[pos],
+                                   (plan.n, plan.n)).coalesce().to_sparse_csr()
+
+
+def replay_sweeps(label: str, seen: dict, what) -> tuple:
+    """Replay recorded kernel sweeps: each held against its plain version,
+    its time beside its bound (bytes and operations), the plain version's
+    time and a cuSPARSE triangular solve's (`torch.triangular_solve` on
+    the same triangle in CSR). what(B) names a sweep in the printed line.
+    Returns (a dict of numbers per sweep, the largest difference)."""
+    import torch
+
+    from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config, sptrsv_multi,
+                                                   sptrsv_plain_multi)
+
+    out, max_abs = [], 0.0
     for vals, X, plan, kind in seen.values():
         B, dt = X.shape[1], dname(vals.dtype)
-        what = "factor" if B > 1 else "solve"
         print_schedule(plan, kind, launch_config(plan, vals.dtype, X.device))
-        got = real(vals, X, plan, kind)
+        got = sptrsv_multi(vals, X, plan, kind)
         ref = sptrsv_plain_multi(vals, X, plan, kind)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         check(bool(torch.isfinite(got).all()) and rel <= TOL[dt],
-              f"cholsol {what} sweep kind={kind} B={B}: the kernel disagrees "
-              f"with the plain version: {rel:.3e}")
-        ms = cuda_ms(lambda: real(vals, X, plan, kind), 5 if B > 1 else 10)
-        b_ms, b_by = bound_ms(*sweep_work(plan, B, vals.element_size()), dt)
-        print(f"cholsol: L_NN {what} sweep kind={kind} {dt} B={B} "
-              f"n={plan.n}: max_abs_err={err:.3e} rel_err={rel:.3e} "
-              f"kernel_ms={ms:.4f} bound_ms={b_ms:.5f} ({b_by}) "
-              f"bound_share={b_ms / ms:.5f}", flush=True)
+              f"{label} {what(B)} sweep kind={kind} B={B}: the kernel "
+              f"disagrees with the plain version: {rel:.3e}")
+        max_abs = max(max_abs, err)
+        ms = cuda_ms(lambda: sptrsv_multi(vals, X, plan, kind),
+                     5 if B > 1 else 10)
+        plain = cuda_ms(lambda: sptrsv_plain_multi(vals, X, plan, kind), 1)
+        nbytes, flops = sweep_work(plan, B, vals.element_size())
+        b_ms, b_by = bound_ms(nbytes, flops, dt)
+        T = plan_csr(vals, plan)
+        lib_fn = lambda: torch.triangular_solve(
+            X, T, upper=kind in (1, 3), transpose=kind in (2, 3)).solution
+        try:
+            _, lib_rel = rel_err(lib_fn(), got)
+            lib = cuda_ms(lib_fn, 3 if B > 1 else 5)
+            lib_txt = f"library_ms={lib:.4f} library_rel_diff={lib_rel:.3e}"
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            lib, lib_txt = None, f"library: none ({type(e).__name__})"
+        print(f"{label}: {what(B)} sweep kind={kind} {dt} B={B} n={plan.n} "
+              f"offdiag={int(plan.ent_off[-1])}: max_abs_err={err:.3e} "
+              f"rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; {nbytes} bytes, {flops} "
+              f"operations) bound_share={b_ms / ms:.5f} {lib_txt}", flush=True)
+        out.append({"path": label, "kind": kind, "n": plan.n, "B": B,
+                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib})
+    return out, max_abs
+
+
+def replay_cholsol_sweeps(call) -> None:
+    """Every kernel sweep one cholsol call launches, recorded with its
+    inputs and replayed (`replay_sweeps`): the factorization's
+    W = L_NN^-1 C(N, T) (float64, B = the dense tail's width) and the
+    solve's two B = 1 sweeps of L_NN (kinds 0 and 2), when the innermost
+    leading block is too large to densify."""
+    seen = record_sweeps(call)
+    if not seen:
+        print("cholsol: no sweep (the innermost leading block is dense)",
+              flush=True)
+    replay_sweeps("cholsol", seen,
+                  lambda B: "L_NN " + ("factor" if B > 1 else "solve"))
 
 
 def phase_cholsol_serve(a, s, seed: int, device: str = "cuda"):
@@ -1233,6 +1300,227 @@ def phase_cholsol_serve(a, s, seed: int, device: str = "cuda"):
                       "bound_by": b_by, "library_ms": lib}, err
 
 
+def qr_matrix(seed: int, grid: Optional[int] = None):
+    """A = [A5; QR_REG * I]: A5 = make_matrix(grid, seed) (QR_GRID by
+    default: n = 16,384) over a scaled identity, m = 2n, a
+    Tikhonov-regularised least-squares problem on the mesh. Returns the
+    port's Sprs."""
+    from rsparse_tpu_torch import Sprs
+
+    a5 = make_matrix(QR_GRID if grid is None else grid, seed)
+    n, nz = a5.n, a5.nnz()
+    p = a5.p + np.arange(n + 1)  # one more entry per column, last
+    reg = np.zeros(nz + n, dtype=bool)
+    reg[p[1:] - 1] = True
+    i, x = np.empty(nz + n, np.int64), np.empty(nz + n)
+    i[~reg], x[~reg] = a5.i[:nz], a5.x[:nz]
+    i[reg], x[reg] = n + np.arange(n), QR_REG
+    return Sprs(nz + n, 2 * n, n, p, i, x)
+
+
+@contextlib.contextmanager
+def phase_seconds(module, names, out: dict):
+    """Time each call of module.<name> for the names given (device work
+    included), summing the seconds into out[name]."""
+    import torch
+
+    real = {k: getattr(module, k) for k in names}
+
+    def wrap(k):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            r = real[k](*args, **kw)
+            torch.cuda.synchronize()
+            out[k] = out.get(k, 0.0) + time.perf_counter() - t0
+            return r
+        return timed
+
+    for k in names:
+        setattr(module, k, wrap(k))
+    try:
+        yield out
+    finally:
+        for k, f in real.items():
+            setattr(module, k, f)
+
+
+def coo_mul(a, device: str):
+    """(x -> A x, y -> A' y) on the card for the port's Sprs a (float64)."""
+    import torch
+
+    from rsparse_tpu_torch.ops.plan import col_ids
+
+    nz = a.nnz()
+    Mi = torch.as_tensor(a.i[:nz], device=device)
+    Mj = torch.as_tensor(col_ids(a.p, a.n), device=device)
+    Mx = torch.as_tensor(a.x[:nz], device=device)
+    amul = lambda x: x.new_zeros(a.m).index_add_(0, Mi, Mx * x[Mj])
+    atmul = lambda y: y.new_zeros(a.n).index_add_(0, Mj, Mx * y[Mi])
+    return amul, atmul
+
+
+def qrsol_calls(label: str, a, bs, s, device: str, check_one):
+    """One cold and len(bs) - 1 warm qrsol calls with `s` (b a list on the
+    second call, an ndarray otherwise), each checked by check_one(k, b, x)
+    -> (host seconds, text); the warm calls reuse the cached factors (A's
+    values are unchanged). Then one more call of bs[0] with the value
+    fingerprint cleared, which refactors: its wall is a warm call's with
+    new values. Returns the x's of the first calls."""
+    import torch
+
+    from rsparse_tpu_torch import qrsol
+    from rsparse_tpu_torch.factor import frontal_qr
+
+    walls, xs, routes, secs = [], [], [], {}
+    for k, b in enumerate(bs):
+        arg = list(b) if k == 1 else b.copy()
+        torch.cuda.synchronize()
+        with phase_seconds(frontal_qr, ("build_qr_mf_plan", "_qr_mf_factor"),
+                           secs if k == 0 else {}):
+            t0 = time.perf_counter()
+            x = qrsol(a, arg, 2, sym=s, device=device)
+            walls.append(time.perf_counter() - t0)
+        routes.append(s._qr_route)
+        if isinstance(arg, list):  # overwritten, grown to n when m < n
+            check(len(arg) == max(len(b), len(x))
+                  and np.array_equal(np.asarray(arg[: len(x)]), x),
+                  f"{label} call {k}: the list b does not hold x")
+        xs.append(x)
+    host = []
+    for k, (b, x) in enumerate(zip(bs, xs)):
+        check(bool(np.isfinite(x).all()) and x.shape == (a.n,),
+              f"{label} call {k}: bad answer")
+        t_host, text = check_one(k, b, x)
+        host.append(t_host)
+        print(f"{label}: call {k} ({'cold' if k == 0 else 'warm'}) {text}",
+              flush=True)
+    s._mf_qr_plan.__dict__.pop("_cache_fp")
+    t0 = time.perf_counter()
+    x = qrsol(a, bs[0].copy(), 2, sym=s, device=device)
+    refactor_s = time.perf_counter() - t0
+    routes.append(s._qr_route)
+    dev = float(np.abs(x - xs[0]).max() / max(1.0, np.abs(xs[0]).max()))
+    print(f"{label}: m={a.m} n={a.n} nnz={a.nnz()} routes={','.join(routes)} "
+          f"cold_planner_s={secs.get('build_qr_mf_plan', 0.0):.4f} "
+          f"cold_factor_s={secs.get('_qr_mf_factor', 0.0):.4f} wall_s="
+          + ",".join(f"{w:.4f}" for w in walls)
+          + f" refactor_wall_s={refactor_s:.4f} refactor_rel_diff={dev:.3e}"
+          + " host_engine_qr_apply_s=" + ",".join(f"{w:.4f}" for w in host),
+          flush=True)
+    check(set(routes) == {"device_mf"}, f"{label} routes {routes}, not all "
+          "the device multifrontal QR")
+    check(dev <= 1e-12, f"{label}: the refactored call differs by {dev:.3e}")
+    return xs
+
+
+def phase_qrsol(seed: int, device: str = "cuda"):
+    """qrsol on the card, both branches, checked against the C++ engine;
+    qrsol_ls; the R sweeps replayed; a profile. Returns (the kernel
+    launches of the qrsol and qrsol_ls runs, the R sweeps' numbers, the
+    largest kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import (multiply, qrsol, qrsol_ls, schol, sqr,
+                                   transpose)
+    from rsparse_tpu_torch.factor.frontal_qr import _qr_mf_factor
+    from rsparse_tpu_torch.solve import _qr_ls_host_exact, _qr_mn_host_exact
+
+    a = qr_matrix(seed)
+    m, n = a.m, a.n
+    rng = np.random.default_rng(seed + 10)
+    bs = [rng.standard_normal(m) for _ in range(4)]
+    bw = [rng.standard_normal(n) for _ in range(4)]
+    aw = transpose(a, device="cpu")  # n x m: underdetermined
+    amul, atmul = coo_mul(a, device)
+    s_ref = sqr(a, 2, True)  # the C++ engine's fresh analysis
+
+    def ls_check(k, b, x):
+        t0 = time.perf_counter()
+        xp = _qr_ls_host_exact(a, s_ref, b, s_ref.q)
+        t_host = time.perf_counter() - t0
+        xh = np.zeros(n)
+        xh[np.asarray(s_ref.q, np.int64)] = xp
+        bd = torch.as_tensor(b, device=device)
+        g = float(atmul(bd - amul(torch.as_tensor(x, device=device))).abs().max())
+        gs = max(1.0, float(atmul(bd).abs().max()))
+        dev = float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+        check(dev <= 1e-9, f"qrsol ls call {k}: differs from the C++ engine "
+              f"by {dev:.3e}")
+        check(g <= 1e-8 * gs, f"qrsol ls call {k}: gradient {g:.3e} over "
+              f"the gate (scale {gs:.3e})")
+        return t_host, f"host_rel_diff={dev:.3e} gradient={g:.3e} scale={gs:.3e}"
+
+    reset_counts()
+    t0 = time.perf_counter()
+    s = sqr(a, 2, True)
+    t_an = time.perf_counter() - t0
+    x_ls = qrsol_calls("qrsol ls", a, bs, s, device, ls_check)
+    plan = s._mf_qr_plan
+    print(f"qrsol ls: analysis_s={t_an:.4f} m2={s.m2} rnz={plan.rnz} "
+          f"buckets={sum(len(lv) for lv in plan.levels)} "
+          f"levels={len(plan.levels)} fronts="
+          f"{sum(b.F for lv in plan.levels for b in lv)} largest_front="
+          f"{max((b.rp, b.cp) for lv in plan.levels for b in lv)}", flush=True)
+
+    at_ref = transpose(aw, device="cpu")
+    sw_ref = sqr(at_ref, 2, True)
+    wmul = coo_mul(aw, device)[0]
+
+    def mn_check(k, b, x):
+        t0 = time.perf_counter()
+        xh = _qr_mn_host_exact(at_ref, sw_ref, b, sw_ref.q)
+        t_host = time.perf_counter() - t0
+        r = float((torch.as_tensor(b, device=device)
+                   - wmul(torch.as_tensor(x, device=device))).abs().max())
+        dev = float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+        check(dev <= 1e-9, f"qrsol mn call {k}: differs from the C++ engine "
+              f"by {dev:.3e}")
+        check(r <= 1e-10 * max(1.0, float(np.abs(b).max())),
+              f"qrsol mn call {k}: residual {r:.3e} over bound")
+        return t_host, f"host_rel_diff={dev:.3e} residual={r:.3e}"
+
+    sw = sqr(transpose(aw, device="cpu"), 2, True)
+    qrsol_calls("qrsol mn", aw, bw, sw, device, mn_check)
+    launches = read_counts()["sptrsv_sweep"]
+    calls = 2 * (len(bs) + 1)
+    print(f"qrsol: sweep_launches={launches} ({calls} calls)", flush=True)
+    check(launches >= calls, f"qrsol: only {launches} kernel launches in "
+          f"{calls} calls")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    s_g = schol(multiply(transpose(a, device=device), a, device=device), 2)
+    t_an = time.perf_counter() - t0
+    walls, xl = [], None
+    for _ in range(2):  # cold (the Cholesky plan built) and warm
+        t0 = time.perf_counter()
+        xl = qrsol_ls(a, bs[0], sym=s_g, device=device)
+        walls.append(time.perf_counter() - t0)
+    ls_launches = read_counts()["sptrsv_sweep"]
+    dev = float(np.abs(xl - x_ls[0]).max() / max(1.0, np.abs(x_ls[0]).max()))
+    print(f"qrsol_ls: gram_analysis_s={t_an:.4f} route={s_g._chol_route} "
+          f"wall_s={walls[0]:.4f},{walls[1]:.4f} qrsol_rel_diff={dev:.3e} "
+          f"sweep_launches={ls_launches}", flush=True)
+    check(bool(np.isfinite(xl).all()) and dev <= 1e-8,
+          f"qrsol_ls differs from qrsol by {dev:.3e}")
+
+    sweeps, max_abs = [], 0.0
+    for label, aa, b, ss in (("ls", a, bs[0], s), ("mn", aw, bw[0], sw)):
+        seen = record_sweeps(
+            lambda: qrsol(aa, b.copy(), 2, sym=ss, device=device))
+        check(len(seen) >= 1, f"qrsol {label}: no R sweep recorded")
+        out, err = replay_sweeps(f"qrsol {label}", seen, lambda B: "R")
+        sweeps += out
+        max_abs = max(max_abs, err)
+    print("qrsol ls profile (1 warm call): " + device_profile(
+        lambda: qrsol(a, bs[0].copy(), 2, sym=s, device=device), 1),
+        flush=True)
+    Ax = plan.__dict__["_cache_ax"]
+    print("qrsol ls factorization profile (1 warm factorization): "
+          + device_profile(lambda: _qr_mf_factor(Ax, plan), 1), flush=True)
+    return launches + ls_launches, sweeps, max_abs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1279,6 +1567,7 @@ def main(argv=None) -> int:
         lap, lap_sym, cholsol_launches = phase_cholsol(args.seed)
         serve_launches, kind2, kind2_err = phase_cholsol_serve(
             lap, lap_sym, args.seed)
+        qr_launches, r_sweeps, r_err = phase_qrsol(args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1288,13 +1577,16 @@ def main(argv=None) -> int:
         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
         library_ms=t["library_ms"])
     by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
-               "cholsol": cholsol_launches, "lusol": lusol_launches}
+               "cholsol": cholsol_launches, "lusol": lusol_launches,
+               "qrsol": qr_launches}
     print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
           f"sweep: {kind2}", flush=True)
     sweep = entry("sptrsv_sweep", "sptrsv.cu",
                   "rsparse_tpu/ops/sptrsv_pallas.py:191",
-                  sum(by_path.values()), max(max_abs, kind2_err), main_ms)
+                  sum(by_path.values()), max(max_abs, kind2_err, r_err),
+                  main_ms)
     sweep["launches_by_path"] = by_path
+    sweep["qr_r_sweeps"] = r_sweeps
     print(json.dumps({"kernels": [
         sweep,
         entry("spmm_stream", "spmm.cu", "rsparse_tpu/ops/spmm_pallas.py:105",

@@ -5,7 +5,7 @@ NVIDIA H100 (sm_90a), checked against the JAX package it is ported from.
 It imports torch and numpy, never jax or rsparse_tpu.
 
 Ported so far (the `lusol_serve` slice, the L2 operator slice, and the
-direct solvers `lusol`/`cholsol`):
+direct solvers `lusol`/`cholsol`/`qrsol`):
   - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), and
     `convert` to build them from plain numpy fields.
   - L2' ops: `add`, `multiply`, `transpose`, `gaxpy`, `norm`, `scpmat`,
@@ -22,12 +22,18 @@ direct solvers `lusol`/`cholsol`):
     inside fronts, the level-scheduled LU below `config.mf_min_n`, and the
     host engine's exact partial pivoting as the fallback; `chol` —
     multifrontal Cholesky (recursive skeleton), the level-scheduled
-    Cholesky with its dense tail below `config.mf_min_n`. Factors are
-    float64.
+    Cholesky with its dense tail below `config.mf_min_n`; `qr` — the
+    level-scheduled blocked Householder QR with the reference's exact V, R
+    and beta (the host engine above its plan cap), and the multifrontal QR
+    (batched dense fronts) behind `qrsol`. Factors are float64, their
+    values numpy arrays.
   - L5' solvers: the single-RHS triangular solves (`lsolve`, `ltsolve`,
     `usolve`, `utsolve`) and their batched forms (`*solve_multi`); the
     `lusol` and `cholsol` solvers (multifrontal one-shot with f64
-    refinement on device, host-exact escape); the `lusol_serve` and
+    refinement on device, host-exact escape); `qrsol` (least squares and
+    minimum norm on the multifrontal QR, with an acceptance gate and a
+    host-exact escape) and `qrsol_ls` (CSNE on the Cholesky factorization
+    of A'A); the `lusol_serve` and
     `cholsol_serve` handles (float32 sweeps + float64 refinement on
     device).
 
@@ -70,9 +76,11 @@ from .solve import (
     cholsol,
     lusol_serve,
     cholsol_serve,
+    qrsol,
+    qrsol_ls,
 )
 from .symbolic import schol, sqr
-from .factor import chol, lu
+from .factor import chol, lu, qr
 from .convert import sprs_from_fields, symb_from_fields
 
 __all__ = [
@@ -85,7 +93,7 @@ __all__ = [
     "TriPlan", "tri_plan",
     "lsolve", "ltsolve", "usolve", "utsolve",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
-    "lusol", "cholsol", "lusol_serve", "cholsol_serve",
-    "schol", "sqr", "chol", "lu",
+    "lusol", "cholsol", "lusol_serve", "cholsol_serve", "qrsol", "qrsol_ls",
+    "schol", "sqr", "chol", "lu", "qr",
     "sprs_from_fields", "symb_from_fields",
 ]

@@ -4,8 +4,9 @@ The host-side canonical representation is a struct-of-arrays of numpy buffers
 (`p: int64[n+1]`, `i: int64[nzmax]`, `x: float64[nzmax]`) mirroring the
 reference containers (reference: src/data.rs:194-208 for `Sprs`,
 src/data.rs:877-889 for `Trpl`). Device work reads these buffers through
-torch tensors made by the numeric layers; factor values returned by `lu` may
-be torch tensors on the caller's device.
+torch tensors made by the numeric layers; the factorizations return their
+values as numpy arrays too (`spgemm_dia` may leave C's values on a device
+when asked to).
 
 Behavioural parity notes (each with the reference location):
   - `from_vec` column-scans a dense matrix dropping explicit zeros

@@ -1,5 +1,5 @@
-"""L5' solvers: triangular solves, the lusol/cholsol solvers and the
-serve handles.
+"""L5' solvers: triangular solves, the lusol/cholsol/qrsol solvers and
+the serve handles.
 
 Triangular solves run as level-scheduled sweeps: the column DAG of a
 triangular factor becomes *level sets* (host, native C++), and one sweep
@@ -10,17 +10,21 @@ it is that module's plain torch version. The single-RHS solves
 `config.backend == "host"`); the batched ones (`lsolve_multi`, ...) one
 sweep over all columns.
 
-`lusol` and `cholsol` keep the reference's signatures, `order`/`tol`
-semantics, error types and in-place overwrite of `b`. At or above
-`config.mf_min_n` each first runs a one-shot on the device: the
-multifrontal factorization, its front solves and early-exit f64 iterative
-refinement (`_lu_one_shot`, `_chol_one_shot`), with the host engine's
-exact factors as the escape when refinement falls short. Below it, or
+`lusol`, `cholsol` and `qrsol` keep the reference's signatures,
+`order`/`tol` semantics, error types and in-place overwrite of `b`. At or
+above `config.mf_min_n` lusol and cholsol first run a one-shot on the
+device: the multifrontal factorization, its front solves and early-exit
+f64 iterative refinement (`_lu_one_shot`, `_chol_one_shot`), with the host
+engine's exact factors as the escape when refinement falls short. Below it, or
 when the multifrontal plan does not apply or LU's pivot margin rejects the
 static pivots, they factor with `factor.lu`/`factor.chol` and run the
 single-RHS solves. `lusol_serve`/`cholsol_serve` build a device-resident
 handle for batches of right-hand sides: float32 sweeps of the whole
-factor through the kernel plus f64 refinement.
+factor through the kernel plus f64 refinement. `qrsol` runs the
+multifrontal QR at or above `config.mf_min_n` (the tree's Qᵀb or Q·x and
+one R sweep, held to an acceptance gate, the host engine's exact QR as the
+escape), `factor.qr` and the reference's apply below it; `qrsol_ls` solves
+the same problems by corrected seminormal equations.
 
 Conventions preserved from the reference:
   - L: the diagonal is the FIRST entry of each column (src/lib.rs:425-427).
@@ -40,7 +44,7 @@ import torch
 from . import ops
 from .config import config
 from .data import Nmrc, Sprs, Symb
-from .factor import _values_fp
+from .factor import _card, _values_fp, device_values
 from .ops.plan import col_ids, device_cache
 from .ops.sptrsv_cuda import sptrsv_multi
 from .symbolic import native
@@ -50,6 +54,7 @@ __all__ = [
     "lsolve", "ltsolve", "usolve", "utsolve",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
     "lusol", "cholsol", "lusol_serve", "cholsol_serve",
+    "happly_dense", "qrsol", "qrsol_ls",
 ]
 
 
@@ -340,10 +345,11 @@ def _host_values(v) -> np.ndarray:
 
 
 def _tri_solve(t: Sprs, x, kind: int, plan: Optional[TriPlan] = None,
-               device="cuda") -> np.ndarray:
+               device="cuda", tx: Optional[torch.Tensor] = None) -> np.ndarray:
     """One RHS: the native engine when `config.backend == "host"`, else one
-    SpTRSV sweep with B = 1 on `device`, in the factor's dtype. Returns a
-    new writable host array."""
+    SpTRSV sweep with B = 1 on `device`, in the factor's dtype. `tx`: t's
+    values already on `device` (a factorization's `device_values`), else
+    t.x is uploaded. Returns a new writable host array."""
     nz = t.nnz()
     if config.backend == "host":
         xv = np.array(x, dtype=np.float64)  # the engine solves in place
@@ -353,7 +359,8 @@ def _tri_solve(t: Sprs, x, kind: int, plan: Optional[TriPlan] = None,
         return xv
     p = plan or tri_plan(t, kind)
     dev = torch.device(device)
-    tx = torch.as_tensor(t.x[:nz], device=dev)
+    if tx is None:
+        tx = torch.as_tensor(t.x[:nz], device=dev)
     X = torch.as_tensor(np.array(x, dtype=np.float64), device=dev)
     return sptrsv_multi(tx, X.to(tx.dtype)[:, None], p, kind)[:, 0].cpu().numpy()
 
@@ -438,9 +445,13 @@ def _host_spmm(a: Sprs, X: np.ndarray) -> np.ndarray:
     return R
 
 
-def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor):
-    """X -> A @ X for the COO matrix (Mi, Mj, Mx) (f64 residuals)."""
-    return lambda X: torch.zeros_like(X).index_add_(0, Mi, Mx[:, None] * X[Mj])
+def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor,
+              rows: Optional[int] = None):
+    """X [k, B] -> A @ X for the COO matrix (Mi, Mj, Mx) with `rows` rows
+    (default k: square) (f64 residuals)."""
+    return lambda X: X.new_zeros(
+        (X.shape[0] if rows is None else rows, X.shape[1])).index_add_(
+        0, Mi, Mx[:, None] * X[Mj])
 
 
 def _refine(solve_once, amul, B64: torch.Tensor, steps: int):
@@ -469,8 +480,8 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
                        device):
     """Build a device-resident batched solve handle `h(B[n, nrhs]) -> X`.
 
-    chain: [(TriPlan, vals_f64, kind), ...] — float32 SpTRSV sweeps run in
-    order. pin/pout: row permutations (Bp[pin[i]] = B[i] on the way in,
+    chain: [(TriPlan, f64 values (array or tensor), kind), ...] — float32
+    SpTRSV sweeps run in order. pin/pout: row permutations (Bp[pin[i]] = B[i] on the way in,
     X[i] = Xs[pout[i]] on the way out; None = identity). (Mi, Mj, Mx): COO
     of the f64 residual matrix in ORIGINAL row order — up to `refine`
     iterative-refinement steps run on device against it. The factor values
@@ -533,6 +544,7 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
     lmat, umat = nm.l, nm.u
+    lx, ux = device_values(nm, "l", dev), device_values(nm, "u", dev)
     route = s._lu_route
     pin = np.asarray(nm.pinv, np.int64) if nm.pinv is not None else None
     nz = a.nnz()
@@ -551,8 +563,8 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
     else:
         zp[:] = bp
     p0, p1 = tri_plan(lmat, 0), tri_plan(umat, 1)
-    zt = _tri_solve_multi(lmat, zp, 0, p0, device=dev)
-    zp = _tri_solve_multi(umat, zt, 1, p1, device=dev).cpu().numpy()
+    zt = sptrsv_multi(lx, torch.as_tensor(zp, device=dev), p0, 0)
+    zp = sptrsv_multi(ux, zt, p1, 1).cpu().numpy()
     xp = np.zeros_like(zp)
     if s.q is not None:
         xp[np.asarray(s.q, np.int64)] = zp
@@ -564,6 +576,8 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
             n, a.p, a.i[:nz], a.x[:nz], s.q, tol, s.lnz, s.unz)
         lmat = Sprs(len(Lx2), n, n, Lp2, Li2, np.asarray(Lx2))
         umat = Sprs(len(Ux2), n, n, Up2, Ui2, np.asarray(Ux2))
+        lx, ux = (torch.as_tensor(lmat.x, device=dev),
+                  torch.as_tensor(umat.x, device=dev))
         pin = np.asarray(pv, np.int64)
         route = "host_exact"
         p0, p1 = tri_plan(lmat, 0), tri_plan(umat, 1)
@@ -574,9 +588,8 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
     Mi = a.i[:nz]
     Mj = col_ids(a.p, n)
     Mx = np.asarray(a.x[:nz], np.float64)
-    h = _make_serve_handle(
-        n, [(p0, lmat.x[: lmat.nnz()], 0), (p1, umat.x[: umat.nnz()], 1)],
-        pin, pout, Mi, Mj, Mx, refine, dev)
+    h = _make_serve_handle(n, [(p0, lx, 0), (p1, ux, 1)], pin, pout, Mi, Mj,
+                           Mx, refine, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t4 = time.perf_counter()
@@ -613,7 +626,7 @@ def cholsol_serve(a: Sprs, order: int = 0, *, sym: Optional[Symb] = None,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    lx = nm.l.x[: nm.l.nnz()]
+    lx = device_values(nm, "l", dev)
     # P b enters as Bp[pinv[i]] = b[i] (ipvec) and leaves as x[i] =
     # Xs[pinv[i]] (pvec): pin = pout = pinv in the handle's convention
     pinv = np.asarray(s.pinv, np.int64) if s.pinv is not None else None
@@ -772,8 +785,10 @@ def lusol(a: Sprs, b, order: int = 1, tol: float = 1e-6,
         nm = lu(a, s, tol, device=device)
     x = np.zeros(n, dtype=np.float64)
     ops.ipvec(n, nm.pinv, bb, x)  # x = P*b
-    x = _tri_solve(nm.l, x, 0, device=device)  # x = L\x
-    x = _tri_solve(nm.u, x, 1, device=device)  # x = U\x
+    x = _tri_solve(nm.l, x, 0, device=device,
+                   tx=device_values(nm, "l", device))  # x = L\x
+    x = _tri_solve(nm.u, x, 1, device=device,
+                   tx=device_values(nm, "u", device))  # x = U\x
     out = np.zeros(n, dtype=np.float64)
     ops.ipvec(n, s.q, x, out)  # b = Q*x
     _writeback(b, out)
@@ -890,9 +905,7 @@ def _chol_one_shot(a: Sprs, s, Bm: np.ndarray, steps: int = 10,
         s._mf_plan = mfp
     if mfp is None:
         return None
-    dev = torch.device(device)
-    if dev.type == "cuda" and dev.index is None:  # the factors' device
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _card(device)  # the factors' device
     _chol_mf_factor(_chol_values(a, s, mfp, dev)[0], mfp)
     s._chol_route = "device_mf"
     return _chol_mf_solve_fused(a, s, mfp, Bm, steps)
@@ -954,9 +967,235 @@ def cholsol(a: Sprs, b, order: int = 0, *, sym: Optional[Symb] = None,
         nm = chol(a, s, device=device)
     x = np.zeros(n, dtype=np.float64)
     ops.ipvec(n, s.pinv, bb, x)  # x = P*b
-    x = _tri_solve(nm.l, x, 0, device=device)  # x = L\x
-    x = _tri_solve(nm.l, x, 2, device=device)  # x = L'\x
+    lx = device_values(nm, "l", device)
+    x = _tri_solve(nm.l, x, 0, device=device, tx=lx)  # x = L\x
+    x = _tri_solve(nm.l, x, 2, device=device, tx=lx)  # x = L'\x
     out = np.zeros(n, dtype=np.float64)
     ops.pvec(n, s.pinv, x, out)  # b = P'*x
     _writeback(b, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# QR solvers (reference src/lib.rs:927-956) and CSNE least squares
+# ---------------------------------------------------------------------------
+
+
+def happly_dense(v: Sprs, k: int, beta: float, x: np.ndarray) -> None:
+    """x -= v * (beta * v'x) for the k-th sparse Householder vector
+    (reference src/lib.rs:2099-2111), on the host."""
+    lo, hi = int(v.p[k]), int(v.p[k + 1])
+    rows = v.i[lo:hi]
+    tau = beta * float(np.dot(v.x[lo:hi], x[rows]))
+    x[rows] -= v.x[lo:hi] * tau
+
+
+def _qr_host(a: Sprs, s: Symb, q):
+    """The host engine's exact QR of `a` under ordering `q`, the one
+    s.parent/pinv/m2 describe. Returns (V, beta, R) with V and R as Sprs."""
+    nz = a.nnz()
+    Vp, Vi, Vx, Rp, Ri, Rx, beta = native.qr_numeric(
+        a.m, a.n, a.p, a.i[:nz], a.x[:nz], q, s.parent, s.pinv, s.m2,
+        s.lnz + 8, s.unz + 8)
+    return (Sprs(len(Vx), s.m2, a.n, Vp, Vi, Vx), beta,
+            Sprs(len(Rx), s.m2, a.n, Rp, Ri, Rx))
+
+
+def _qr_ls_host_exact(a: Sprs, s: Symb, bb: np.ndarray, q) -> np.ndarray:
+    """Reference-exact least-squares solve through the host engine (qr +
+    ipvec/happly/usolve, src/lib.rs:931-942), the escape when the device
+    tree misses the acceptance gate. Returns x in the order `q`, which must
+    be the ordering s.parent/pinv/cp/m2 describe (a multifrontal plan's
+    `q_host`; s.q then holds the postorder-composed one, and mixing the two
+    overruns the C++ engine's buffers)."""
+    V, beta, R = _qr_host(a, s, q)
+    xx = np.zeros(s.m2)
+    xx[np.asarray(s.pinv[: a.m], np.int64)] = bb[: a.m]
+    native.qr_ls_apply(a.n, V.p, V.i, V.x, beta, R.p, R.i, R.x, xx)
+    return xx[: a.n]
+
+
+def _qr_mn_host_exact(at: Sprs, s: Symb, bb: np.ndarray, q) -> np.ndarray:
+    """Reference-exact minimum-norm solve through the host engine (QR of
+    A', pvec/utsolve/happly reversed/pvec, src/lib.rs:943-955), the escape
+    of the underdetermined branch. Returns x [n] in original row order. `q`:
+    as in `_qr_ls_host_exact`."""
+    V, beta, R = _qr_host(at, s, q)
+    m, n = at.n, at.m  # A's dimensions
+    x = np.zeros(s.m2)
+    ops.pvec(m, q, bb, x)
+    xv = np.ascontiguousarray(x[:m])
+    native.utsolve_host(m, R.p, R.i, R.x, xv)
+    x[:m] = xv
+    for k in range(m - 1, -1, -1):
+        happly_dense(V, k, float(beta[k]), x)
+    out = np.zeros(n, dtype=np.float64)
+    ops.pvec(n, s.pinv, x, out)
+    return out
+
+
+def _qr_mf_try(a: Sprs, s: Symb, device):
+    """The multifrontal QR plan of `a`, factored on `device` with A's
+    current values (refactored when the values or the device change), or
+    None below `config.mf_min_n`, with `config.backend == "host"` or when
+    the plan does not apply."""
+    from .factor.frontal_qr import _qr_mf_factor, build_qr_mf_plan
+
+    if a.n < config.mf_min_n or config.backend == "host":
+        return None
+    plan = getattr(s, "_mf_qr_plan", "unset")
+    if isinstance(plan, str):
+        plan = s._mf_qr_plan = build_qr_mf_plan(a, s)
+    if plan is not None:
+        dev = _card(device)
+        # the cached tree holds A's values: sym reuse with refreshed values
+        # refactors (value fingerprint)
+        key = (_values_fp(a), str(dev))
+        if plan.__dict__.get("_cache_fp") != key:
+            nz = a.nnz()
+            _qr_mf_factor(torch.as_tensor(np.asarray(a.x[:nz], np.float64),
+                                          device=dev), plan)
+            plan.__dict__["_cache_fp"] = key
+    return plan
+
+
+def _q_host(plan) -> Optional[np.ndarray]:
+    """The ordering the host engine needs after a plan build: plan.q_host,
+    None only when the plan committed no ordering (natural order)."""
+    assert plan.q_host is not None or plan.q is None, "plan lost its q_host"
+    return plan.q_host
+
+
+def qrsol(a: Sprs, b, order: int = 2, *, sym: Optional[Symb] = None,
+          device="cuda"):
+    """x = A\\b via QR; least squares when m >= n, minimum norm (QR of A')
+    when m < n; b overwritten with the solution (a list grows to n values,
+    a fixed ndarray shorter than x is left as it is) (reference
+    src/lib.rs:927-956).
+
+    At or above `config.mf_min_n` both branches run the multifrontal tree
+    on `device` (factor/frontal_qr.py), held to the acceptance gate:
+    max|A'(b - Ax)| <= 1e-8 max(1, max|A'b|) (least squares) or
+    max|b - Ax| <= 1e-8 max(1, max|b|) (minimum norm); when it fails, the
+    host engine's exact Householder QR answers. Below it, `factor.qr`
+    (level-scheduled on `device`) and the reference's apply. `s._qr_route`
+    reads "device_mf", "host_exact", "device_level" or "host".
+
+    `sym` (extension, as for lusol/cholsol): reuse an analysis across
+    solves with one sparsity pattern: `sqr(a, order, True)` when m >= n,
+    `sqr(transpose(a), order, True)` when m < n.
+
+    >>> from rsparse_tpu_torch import Sprs, qrsol
+    >>> a = Sprs.new_from_vec([[1.0, 0.0], [0.0, 2.0], [1.0, 1.0]])
+    >>> x = qrsol(a, [1.0, 4.0, 3.0], 2, device="cpu")  # least squares
+    >>> [round(float(v), 6) for v in x[:2]]
+    [1.0, 2.0]
+    """
+    from .factor import qr
+    from .factor.frontal_qr import qrsol_mf_ls, qrsol_mf_mn
+    from .symbolic import sqr
+
+    n, m = a.n, a.m
+    bb = np.asarray(b, dtype=np.float64)
+    if m >= n:
+        s = sym if sym is not None else sqr(a, order, True)
+        mfq = _qr_mf_try(a, s, device)
+        if mfq is not None:
+            xp, gmax, gscale = qrsol_mf_ls(a, s, mfq, bb[:m])
+            qcols, s._qr_route = mfq.q, "device_mf"
+            if not gmax <= 1e-8 * gscale:  # NaN fails too
+                qcols, s._qr_route = _q_host(mfq), "host_exact"
+                xp = _qr_ls_host_exact(a, s, bb[:m], qcols)
+            out = np.zeros(n, dtype=np.float64)
+            ops.ipvec(n, qcols, xp, out)
+            _writeback(b, out)
+            return out
+        nm = qr(a, s, device=device)
+        x = np.zeros(s.m2, dtype=np.float64)
+        ops.ipvec(m, s.pinv, bb[:m], x)  # x(0:m-1) = P*b
+        for k in range(n):
+            happly_dense(nm.l, k, float(nm.b[k]), x)
+        x[:n] = _tri_solve(nm.u, x[:n], 1, device=device,
+                           tx=device_values(nm, "u", device))  # x = R\x
+        out = np.zeros(n, dtype=np.float64)
+        ops.ipvec(n, s.q, x, out)  # b(0:n-1) = Q*x
+    else:
+        at = ops.transpose(a, device="cpu")  # underdetermined: QR of A'
+        s = sym if sym is not None else sqr(at, order, True)
+        mfq = _qr_mf_try(at, s, device)
+        if mfq is not None:
+            out, rmax = qrsol_mf_mn(at, s, mfq, bb[:m])
+            s._qr_route = "device_mf"
+            if not rmax <= 1e-8 * max(1.0, float(np.abs(bb[:m]).max())):
+                s._qr_route = "host_exact"
+                out = _qr_mn_host_exact(at, s, bb[:m], _q_host(mfq))
+            _writeback(b, out)
+            return out
+        nm = qr(at, s, device=device)
+        x = np.zeros(s.m2, dtype=np.float64)
+        ops.pvec(m, s.q, bb, x)  # x = Q'*b
+        x[:m] = _tri_solve(nm.u, x[:m], 3, device=device,
+                           tx=device_values(nm, "u", device))  # x = R'\x
+        for k in range(m - 1, -1, -1):
+            happly_dense(nm.l, k, float(nm.b[k]), x)
+        out = np.zeros(n, dtype=np.float64)
+        ops.pvec(n, s.pinv, x, out)  # b = P'*x
+    _writeback(b, out)
+    return out
+
+
+def qrsol_ls(a: Sprs, b, order: int = 2, refine: int = 2, *,
+             sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
+    """Least-squares / minimum-norm solve by corrected seminormal equations
+    (CSNE, Björck): R from the Cholesky factorization of A'A (R'R = A'A),
+    x = R⁻¹R⁻ᵀA'b, then `refine` f64 refinement steps
+    x += (A'A)⁻¹A'(b - Ax). m < n solves the minimum-norm problem through
+    AA'. The same solutions as `qrsol` for all but severely ill-conditioned
+    systems (CSNE squares the condition number). `sym` reuses the A'A (or
+    AA') analysis. The factorization, its solves and the refinement run on
+    `device`; b is not overwritten. No reference counterpart.
+    """
+    from .factor import chol
+    from .factor.frontal import _solve_mf_dev
+    from .symbolic import schol
+
+    m, n = a.m, a.n
+    at = ops.transpose(a, device=device)
+    g = ops.multiply(at, a, device=device) if m >= n else ops.multiply(
+        a, at, device=device)
+    k = g.n
+    s = sym if sym is not None else schol(g, order)
+    nm = chol(g, s, device=device)
+    mfp = getattr(s, "_mf_plan", None)
+    tree = (mfp.__dict__.get("_cache_tree")
+            if s._chol_route == "device_mf" else None)
+    dev = torch.device(device)
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+    pinv = ix(s.pinv) if s.pinv is not None else None
+    if tree is None:
+        lx = device_values(nm, "l", dev)
+        tp0, tp2 = tri_plan(nm.l, 0), tri_plan(nm.l, 2)
+
+    def spd_solve(r):  # (G)⁻¹ r for r [k, 1], G = P'LL'P
+        z = r if pinv is None else torch.zeros_like(r).index_copy_(0, pinv, r)
+        if tree is not None:
+            z = _solve_mf_dev(mfp, z, tree)
+        else:
+            z = sptrsv_multi(lx, sptrsv_multi(lx, z, tp0, 0), tp2, 2)
+        return z if pinv is None else z[pinv]
+
+    nz = a.nnz()
+    rows, cols = ix(a.i[:nz]), ix(col_ids(a.p, n))
+    ax = torch.as_tensor(np.asarray(a.x[:nz], np.float64), device=dev)
+    amul = _coo_amul(rows, cols, ax, m)  # A
+    atmul = _coo_amul(cols, rows, ax, n)  # A'
+    b64 = torch.as_tensor(np.asarray(b, np.float64), device=dev)[:, None]
+    if m >= n:
+        x = spd_solve(atmul(b64))
+        for _ in range(max(0, refine)):
+            x = x + spd_solve(atmul(b64 - amul(x)))
+    else:  # minimum norm: x = A'(AA')⁻¹ b
+        x = atmul(spd_solve(b64))
+        for _ in range(max(0, refine)):
+            x = x + atmul(spd_solve(b64 - amul(x)))
+    return x[:, 0].cpu().numpy()

@@ -20,7 +20,8 @@ from ..data import Sprs, Symb
 from .. import ops
 from . import native
 
-__all__ = ["schol", "sqr", "amd", "etree", "post", "native"]
+__all__ = ["schol", "sqr", "amd", "etree", "post", "counts", "vcount",
+           "native"]
 
 
 def amd(a: Sprs, order: int):
@@ -34,6 +35,18 @@ def etree(a: Sprs, ata: bool = False) -> np.ndarray:
 
 def post(n: int, parent: np.ndarray) -> np.ndarray:
     return native.post(n, parent)
+
+
+def counts(a: Sprs, parent, post_, ata: bool) -> np.ndarray:
+    """Column counts of chol(A) or, with `ata`, of chol(A'A) (reference
+    src/lib.rs:1797-1897)."""
+    return native.counts(a.m, a.n, a.p, a.i[: a.nnz()], parent, post_, ata)
+
+
+def vcount(a: Sprs, parent):
+    """(pinv, m2, vnz): the QR row permutation with fictitious rows, the row
+    count with them, and V's entry count (reference src/lib.rs:2450-2530)."""
+    return native.vcount(a.m, a.n, a.p, a.i[: a.nnz()], parent)
 
 
 def _symperm_host(a: Sprs, pinv) -> Sprs:

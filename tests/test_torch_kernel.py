@@ -83,7 +83,7 @@ def _sweep_case(name, kind):
             finally:
                 rt.config.mf_min_n = old
             t = nm.l if kind in (0, 2) else nm.u
-            t = sprs_from_fields(t.n, t.n, t.p, t.i, t.x.cpu().numpy())
+            t = sprs_from_fields(t.n, t.n, t.p, t.i, t.x)
         elif name == "levels":
             t = _tri(kind)
         else:
@@ -415,3 +415,112 @@ def test_dia_kernel_on_offset_view():
     want = spmv_mod.dia_spmv_plain(shifted, xt, plan)
     for dia in (shifted, wide[:, :, 1:]):
         assert _rel(spmv_mod.dia_spmv(dia, xt, plan), want) < 1e-5
+
+
+def _qr_case(grid=24, seed=0):
+    """chip_smoke's least-squares matrix [A5; 0.1 I] on a grid x grid mesh
+    (n = grid², m = 2n) and its minimum-norm transpose."""
+    import chip_smoke
+
+    a = chip_smoke.qr_matrix(seed, grid)
+    return a, rt.transpose(a, device="cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("kind", [1, 3])
+def test_kernel_on_qr_r_plans_on_card(monkeypatch, kind, B):
+    """The sweep kernel on the multifrontal QR's R (usolve kind 1, utsolve
+    kind 3; float64; R's dense root triangle solved as the kernel's block)
+    against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch.factor import frontal_qr
+
+    a, _ = _qr_case()
+    s = rt.sqr(a, 2, True)
+    plan = frontal_qr.build_qr_mf_plan(a, s)
+    frontal_qr.qr_mf(a, s, plan, "cuda")
+    tplan = frontal_qr._r_plans(plan, kind)
+    assert tplan.dense is not None
+    tx = plan.__dict__["_cache_rv"]
+    X = torch.as_tensor(np.random.default_rng(kind + B).standard_normal(
+        (plan.n, B)), device="cuda")
+    before = sptrsv_multi.launches
+    got = sptrsv_multi(tx, X, tplan, kind)
+    torch.cuda.synchronize()
+    assert sptrsv_multi.launches == before + 1
+    assert _rel(got, sptrsv_plain_multi(tx, X, tplan, kind)) < 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["ls", "mn"])
+@pytest.mark.parametrize("mf_min_n,route", [(100, "device_mf"),
+                                            (10**9, "device_level")])
+def test_qrsol_on_card(monkeypatch, branch, mf_min_n, route):
+    """qrsol on the card agrees with its CPU run on both branches and both
+    routes; the R sweep runs the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
+    a, aw = _qr_case(grid=12)
+    a = a if branch == "ls" else aw
+    b = np.random.default_rng(3).standard_normal(a.m)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = rt.sqr(a if branch == "ls" else rt.transpose(a, device="cpu"), 2,
+                   True)
+        before = sptrsv_multi.launches
+        x = rt.qrsol(a, b.copy(), 2, sym=s, device=dev)
+        out[dev] = (x, s._qr_route, sptrsv_multi.launches - before)
+    assert out["cuda"][1] == out["cpu"][1] == route
+    assert out["cuda"][2] >= 1 and out["cpu"][2] == 0
+    want = out["cpu"][0]
+    assert np.abs(out["cuda"][0] - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["ls", "mn"])
+def test_qrsol_ls_on_card(monkeypatch, branch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(rt.config, "mf_min_n", 100)
+    a, aw = _qr_case(grid=12)
+    a = a if branch == "ls" else aw
+    b = np.random.default_rng(4).standard_normal(a.m)
+    got = rt.qrsol_ls(a, b, 2, device="cuda")
+    want = rt.qrsol_ls(a, b, 2, device="cpu")
+    assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["chol", "lu", "qr"])
+def test_factor_values_contract_on_card(kind):
+    """chol, lu and qr on the card return writable float64 numpy values,
+    which copy and gaxpy take; they equal the CPU run's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, p, i, x = laplacian_5pt(12)
+    a = sprs_from_fields(n, n, p, i, x)
+    if kind == "qr":
+        a = _qr_case(grid=12)[0]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        if kind == "chol":
+            nm = rt.chol(a, rt.schol(a, 1), device=dev)
+        elif kind == "lu":
+            nm = rt.lu(a, rt.sqr(a, 1, False), 1e-6, device=dev)
+        else:
+            nm = rt.qr(a, rt.sqr(a, 2, True), device=dev)
+        out[dev] = nm
+    for which in ("l", "u") if kind != "chol" else ("l",):
+        t, ref = getattr(out["cuda"], which), getattr(out["cpu"], which)
+        assert isinstance(t.x, np.ndarray) and t.x.dtype == np.float64
+        assert t.x.flags.writeable
+        c = t.copy()
+        assert c == t
+        assert np.abs(t.x - ref.x).max() <= 1e-12 * max(1.0, np.abs(ref.x).max())
+        v = np.random.default_rng(5).standard_normal(t.n)
+        got = np.asarray(rt.gaxpy(t, list(v), [0.0] * t.m, device="cuda"))
+        want = np.asarray(rt.gaxpy(ref, list(v), [0.0] * t.m, device="cpu"))
+        assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())

@@ -272,4 +272,5 @@ def test_default_device_covers_the_slice():
                      "norm", "scpmat", "scxmat", "permute", "symperm",
                      "sprs_print", "spmm", "spmv", "spgemm_dia",
                      "lusol", "cholsol", "cholsol_serve", "chol", "lsolve",
-                     "ltsolve", "usolve", "utsolve", "_tri_solve"}
+                     "ltsolve", "usolve", "utsolve", "_tri_solve", "qr",
+                     "qrsol", "qrsol_ls"}

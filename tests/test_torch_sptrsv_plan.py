@@ -42,7 +42,7 @@ def mf():
     assert s._lu_route == "device_mf"
     skel = s._mf_lu_plan.skel_plan
     assert isinstance(skel, DenseSkelPlan)
-    host = lambda t: sprs_from_fields(t.n, t.n, t.p, t.i, t.x.numpy())
+    host = lambda t: sprs_from_fields(t.n, t.n, t.p, t.i, t.x)
     return host(nm.l), host(nm.u), skel.ns
 
 
