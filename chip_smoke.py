@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (rsparse_tpu_torch) on one GPU.
 
-Drives the port's three kernel paths once each at full size and checks
-them:
+Drives the port's three kernel paths and the solvers on them once each
+at full size and checks them:
 
   1. environment: torch and CUDA versions, the card's name and power limit;
   2. build: the C++ host engine (g++) and the three CUDA kernels (nvcc,
@@ -63,7 +63,7 @@ them:
  10. qrsol (main path 7): least squares on A = [A5; 0.1 I] (A5 the
      lusol phase's matrix, m = 32,768, n = 16,384, a Tikhonov-regularised
      mesh problem), order 2: `qrsol(A, b, 2, sym=s, device="cuda")` once
-     cold and three times warm (b a list once, an ndarray otherwise), each
+     cold (b an ndarray) and once warm (b a list), each
      held to the C++ engine's QR + apply on a fresh analysis and to the
      least-squares gradient gate; then minimum norm on A' (16,384 x 32,768)
      the same way, held to the C++ engine's minimum-norm recipe and its
@@ -73,7 +73,25 @@ them:
      cold and once warm, held to qrsol; the R sweeps of a warm call of each
      branch (kinds 1 and 3, float64, B = 1) replayed against their plain
      version with their times, bounds and a cuSPARSE triangular solve; a
-     profile of one warm least-squares call.
+     profile of one warm least-squares call;
+ 11. the batched and serving drivers (main paths 8-12), each at full width
+     with its launch counts set to 0 just before it and read just after:
+     `cholsol_multi(A, B, 1, sym=s)` on phase 8's Laplacian and analysis,
+     B[n, 128], once cold and three times warm (route device_mf), held to
+     one C++ factorization plus 128 sequential C++ solves; `lusol_multi` on
+     phase 7's matrix and analysis, B[n, 128], once cold and three times
+     warm (route device_mf), held to its residual and to the C++ engine's
+     LU plus 128 solves; per qrsol branch (phase 10's matrices, the Gram
+     analysis of its qrsol_ls), a `qrsol_serve` handle, 4 requests of
+     B[m, 128] and `qrsol_multi` once cold and once warm (route serve), held
+     to the least-squares oracle (the residual for the minimum norm), to
+     the port's qrsol on two columns and to the C++ engine's QR and 128
+     applies; `cholsol_ir(D A D, b, 1, "float32", 3)` (A phase 8's
+     Laplacian, D a seeded diagonal scaling) held to cholsol on the same
+     matrix; a profile of each, and every new kernel sweep (the skeleton's
+     f64 B = 128 pair, the Gram's f32 B = 128 pair of each branch,
+     cholsol_ir's f32 B = 1 pair) replayed against its plain version with
+     its time, bound and a cuSPARSE triangular solve.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -374,12 +392,14 @@ def device_profile(fn, steps: int) -> str:
     """Run fn() `steps` times under torch.profiler and summarize: host wall
     and device busy time per step, the device activities per step
     (kernels, copies, fills), the device's idle share, and the top device
-    activities by time."""
+    activities by time. Only device activity is recorded: host operators
+    add nothing to the summary, and after a call of tens of thousands of
+    device ops their events multiply the profiler's own processing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -911,7 +931,8 @@ def host_residual(a, x: np.ndarray) -> np.ndarray:
 
 def phase_lusol(a, seed: int, device: str = "cuda"):
     """lusol on the card: one cold and three warm calls with the analysis
-    reused, each checked; returns the kernel launches of the run."""
+    reused, each checked; returns (the kernel launches of the run, the
+    analysis)."""
     from rsparse_tpu_torch import lusol, sqr
     from rsparse_tpu_torch.symbolic import native
 
@@ -973,7 +994,7 @@ def phase_lusol(a, seed: int, device: str = "cuda"):
     print("lusol profile (1 warm call): " + device_profile(
         lambda: lusol(a, bs[0].copy(), 1, 1e-6, sym=s, device=device), 1),
         flush=True)
-    return launches
+    return launches, s
 
 
 def chol_host_factor(a, s):
@@ -1098,6 +1119,7 @@ def phase_cholsol(seed: int, device: str = "cuda"):
 def record_sweeps(call) -> dict:
     """Run call() with every SpTRSV kernel sweep recorded: {(plan, kind,
     B): (values, X, plan, kind)}, the first launch of each, inputs cloned."""
+    from rsparse_tpu_torch import solve
     from rsparse_tpu_torch.ops import sptrsv_cuda
 
     real, seen = sptrsv_cuda.sptrsv_multi, {}
@@ -1109,11 +1131,11 @@ def record_sweeps(call) -> dict:
         return real(vals, X, plan, kind, **kw)
 
     record.launches = 0  # the kernel counts its launches on the module's name
-    sptrsv_cuda.sptrsv_multi = record
+    sptrsv_cuda.sptrsv_multi = solve.sptrsv_multi = record
     try:
         call()
     finally:
-        sptrsv_cuda.sptrsv_multi = real
+        sptrsv_cuda.sptrsv_multi = solve.sptrsv_multi = real
     return seen
 
 
@@ -1345,7 +1367,8 @@ def phase_seconds(module, names, out: dict):
 
 
 def coo_mul(a, device: str):
-    """(x -> A x, y -> A' y) on the card for the port's Sprs a (float64)."""
+    """(x -> A x, y -> A' y) on the card for the port's Sprs a (float64),
+    x and y vectors or [n, B] / [m, B] blocks."""
     import torch
 
     from rsparse_tpu_torch.ops.plan import col_ids
@@ -1354,8 +1377,11 @@ def coo_mul(a, device: str):
     Mi = torch.as_tensor(a.i[:nz], device=device)
     Mj = torch.as_tensor(col_ids(a.p, a.n), device=device)
     Mx = torch.as_tensor(a.x[:nz], device=device)
-    amul = lambda x: x.new_zeros(a.m).index_add_(0, Mi, Mx * x[Mj])
-    atmul = lambda y: y.new_zeros(a.n).index_add_(0, Mj, Mx * y[Mi])
+    w = lambda v: Mx.view((-1,) + (1,) * (v.dim() - 1))
+    amul = lambda x: x.new_zeros((a.m,) + x.shape[1:]).index_add_(
+        0, Mi, w(x) * x[Mj])
+    atmul = lambda y: y.new_zeros((a.n,) + y.shape[1:]).index_add_(
+        0, Mj, w(y) * y[Mi])
     return amul, atmul
 
 
@@ -1417,7 +1443,8 @@ def phase_qrsol(seed: int, device: str = "cuda"):
     """qrsol on the card, both branches, checked against the C++ engine;
     qrsol_ls; the R sweeps replayed; a profile. Returns (the kernel
     launches of the qrsol and qrsol_ls runs, the R sweeps' numbers, the
-    largest kernel difference)."""
+    largest kernel difference, the matrices and analyses phase 11
+    reuses)."""
     import torch
 
     from rsparse_tpu_torch import (multiply, qrsol, qrsol_ls, schol, sqr,
@@ -1428,8 +1455,11 @@ def phase_qrsol(seed: int, device: str = "cuda"):
     a = qr_matrix(seed)
     m, n = a.m, a.n
     rng = np.random.default_rng(seed + 10)
-    bs = [rng.standard_normal(m) for _ in range(4)]
-    bw = [rng.standard_normal(n) for _ in range(4)]
+    # one cold and one warm call per branch: each is held to a C++ QR +
+    # apply of ~9 s on the card's host, so more warm repeats cost the
+    # smoke's time limit more than they tell
+    bs = [rng.standard_normal(m) for _ in range(2)]
+    bw = [rng.standard_normal(n) for _ in range(2)]
     aw = transpose(a, device="cpu")  # n x m: underdetermined
     amul, atmul = coo_mul(a, device)
     s_ref = sqr(a, 2, True)  # the C++ engine's fresh analysis
@@ -1518,7 +1548,341 @@ def phase_qrsol(seed: int, device: str = "cuda"):
     Ax = plan.__dict__["_cache_ax"]
     print("qrsol ls factorization profile (1 warm factorization): "
           + device_profile(lambda: _qr_mf_factor(Ax, plan), 1), flush=True)
-    return launches + ls_launches, sweeps, max_abs
+    return launches + ls_launches, sweeps, max_abs, {
+        "a": a, "aw": aw, "ls": s, "mn": sw, "gram": s_g, "ls_ref": s_ref,
+        "at_ref": at_ref}
+
+
+def timed_calls(call, k: int) -> tuple:
+    """k calls of call(), each timed with the card synchronized around it:
+    (the results, the walls in seconds)."""
+    import torch
+
+    outs, walls = [], []
+    for _ in range(k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(call())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return outs, walls
+
+
+def walls_txt(walls) -> str:
+    return ",".join(f"{w:.4f}" for w in walls)
+
+
+def replay_new(label: str, seen: dict, keep) -> tuple:
+    """Replay (`replay_sweeps`) the recorded kernel sweeps (`record_sweeps`)
+    that keep(values dtype, B) selects; at least one must be."""
+    seen = {k: v for k, v in seen.items() if keep(v[0].dtype, v[1].shape[1])}
+    check(len(seen) >= 1, f"{label}: no kernel sweep recorded")
+    return replay_sweeps(label, seen, lambda B: f"B={B}")
+
+
+def multi_cholsol(lap, lap_sym, seed: int, device: str):
+    """cholsol_multi on the CHOL_GRID Laplacian with phase 8's analysis,
+    B[n, 128]: one cold (its first call) and three warm calls, route
+    device_mf, held to one C++ factorization plus 128 sequential C++ solves;
+    the skeleton's f64 B = 128 sweeps replayed. Returns (launches, sweep
+    numbers, the largest kernel difference)."""
+    from rsparse_tpu_torch import cholsol_multi
+
+    n = lap.n
+    B = np.random.default_rng(seed + 11).standard_normal((n, NRHS))
+    reset_counts()
+    routes = []
+
+    def call():
+        X = cholsol_multi(lap, B, 1, sym=lap_sym, device=device)
+        routes.append(lap_sym._multi_route)
+        return X
+
+    xs, walls = timed_calls(call, 4)
+    launches = read_counts()["sptrsv_sweep"]
+    t0 = time.perf_counter()
+    Xh = chol_host_solves(n, chol_host_factor(lap, lap_sym),
+                          np.asarray(lap_sym.pinv, np.int64), B)
+    t_host = time.perf_counter() - t0
+    devs = [float(np.abs(X - Xh).max() / max(1.0, np.abs(Xh).max()))
+            for X in xs]
+    print(f"cholsol_multi: n={n} B={NRHS} routes={','.join(routes)} wall_s="
+          f"{walls_txt(walls)} host_engine_chol_plus_128_solves_s={t_host:.4f} "
+          f"host_rel_diff={max(devs):.3e} sweep_launches={launches}",
+          flush=True)
+    for X in xs:
+        check(X.shape == (n, NRHS) and bool(np.isfinite(X).all()),
+              "cholsol_multi: bad answer")
+    check(set(routes) == {"device_mf"}, f"cholsol_multi routes {routes}, not "
+          "all the device multifrontal tree")
+    check(max(devs) <= 1e-9, f"cholsol_multi differs from the C++ engine by "
+          f"{max(devs):.3e}")
+    check(launches >= 4, f"cholsol_multi: only {launches} kernel launches in "
+          "4 calls")
+    print("cholsol_multi profile (1 warm call): " + device_profile(call, 1),
+          flush=True)
+    sweeps, err = replay_new("cholsol_multi", record_sweeps(call),
+                             lambda dt, b: b == NRHS)
+    return launches, sweeps, err
+
+
+def multi_lusol(a, s, seed: int, device: str):
+    """lusol_multi on the lusol matrix with phase 7's analysis, B[n, 128]:
+    one cold and three warm calls, route device_mf, held to its residual
+    and to the C++ engine's LU plus 128 solves. Returns the launches."""
+    import torch
+
+    from rsparse_tpu_torch import lusol_multi, sqr
+    from rsparse_tpu_torch.symbolic import native
+
+    n, nz = a.n, a.nnz()
+    B = np.random.default_rng(seed + 12).standard_normal((n, NRHS))
+    reset_counts()
+    routes = []
+
+    def call():
+        X = lusol_multi(a, B, 1, 1e-6, sym=s, device=device)
+        routes.append(s._multi_route)
+        return X
+
+    xs, walls = timed_calls(call, 4)
+    launches = read_counts()["sptrsv_sweep"]
+    s0 = sqr(a, 1, False)
+    t0 = time.perf_counter()
+    Lp, Li, Lx, Up, Ui, Ux, pinv = native.lu_numeric(
+        n, a.p, a.i[:nz], a.x[:nz], s0.q, 1e-6, s0.lnz, s0.unz)
+    Xh = host_solves(a, B, (Lp, Li, Lx, Up, Ui, Ux, pinv,
+                            np.asarray(s0.q, np.int64)))
+    t_host = time.perf_counter() - t0
+    amul = coo_mul(a, device)[0]
+    Bd = torch.as_tensor(B, device=device)
+    res = max(float((amul(torch.as_tensor(X, device=device)) - Bd).abs().max())
+              for X in xs)
+    devs = max(float(np.abs(X - Xh).max() / max(1.0, np.abs(Xh).max()))
+               for X in xs)
+    print(f"lusol_multi: n={n} B={NRHS} routes={','.join(routes)} wall_s="
+          f"{walls_txt(walls)} host_engine_lu_plus_128_solves_s={t_host:.4f} "
+          f"residual={res:.3e} host_rel_diff={devs:.3e} "
+          f"sweep_launches={launches}", flush=True)
+    for X in xs:
+        check(X.shape == (n, NRHS) and bool(np.isfinite(X).all()),
+              "lusol_multi: bad answer")
+    check(set(routes) == {"device_mf"}, f"lusol_multi routes {routes}, not "
+          "all the device multifrontal one-shot")
+    check(res <= 1e-10 * max(1.0, float(np.abs(B).max())),
+          f"lusol_multi: residual {res:.3e} over bound")
+    check(devs <= 1e-8, f"lusol_multi differs from the C++ engine by "
+          f"{devs:.3e}")
+    print("lusol_multi profile (1 warm call): " + device_profile(call, 1),
+          flush=True)
+    return launches
+
+
+def host_qr_apply(label: str, V, beta, R, sref, B, m: int, n: int):
+    """The C++ engine's QR (V, beta, R; analysis sref) applied to the
+    columns of B for the m x n system of one branch: least squares (the QR
+    is of A) by the C++ `qr_ls_apply` per column, or minimum norm (the QR
+    is of A') by the C++ utsolve per column, then the Householder
+    reflections over all columns at once in numpy."""
+    from rsparse_tpu_torch.symbolic import native
+
+    q, pinv = np.asarray(sref.q, np.int64), np.asarray(sref.pinv, np.int64)
+    if label == "ls":
+        X = np.empty((n, B.shape[1]))
+        for j in range(B.shape[1]):
+            xx = np.zeros(sref.m2)
+            xx[pinv[:m]] = B[:, j]
+            native.qr_ls_apply(n, V.p, V.i, V.x, beta, R.p, R.i, R.x, xx)
+            X[q, j] = xx[:n]
+        return X
+    Z = np.zeros((sref.m2, B.shape[1]))
+    Z[:m] = B[q]
+    for j in range(B.shape[1]):
+        col = np.ascontiguousarray(Z[:m, j])
+        native.utsolve_host(m, R.p, R.i, R.x, col)
+        Z[:m, j] = col
+    for k in range(m - 1, -1, -1):
+        lo, hi = int(V.p[k]), int(V.p[k + 1])
+        rows, v = V.i[lo:hi], V.x[lo:hi]
+        Z[rows] -= np.outer(v, beta[k] * (v @ Z[rows]))
+    return Z[pinv[:n]]
+
+
+def multi_qrsol(qr: dict, seed: int, device: str):
+    """qrsol_serve and qrsol_multi on phase 10's matrices, both branches,
+    B[m, 128], with the Gram analysis of phase 10's qrsol_ls (A'A of A is
+    also the minimum-norm branch's Gram): per branch one handle build, 4
+    requests, then qrsol_multi once cold (its own cached handle) and once
+    warm; every answer held to the JAX package's oracle (least squares:
+    max|A'(B - AX)| <= 1e-8 max(1, max|B|); minimum norm: max|B - AX| <=
+    1e-10 max(1, max|B|)), columns 0 and 1 to the port's qrsol, and all of
+    it to the C++ engine's QR and 128 applies; the handle's f32 B = 128
+    Gram sweeps replayed. Returns (launches of qrsol_serve, of
+    qrsol_multi, sweep numbers, the largest kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import qrsol, qrsol_multi, qrsol_serve
+    from rsparse_tpu_torch.solve import _qr_host
+
+    rng = np.random.default_rng(seed + 13)
+    t0 = time.perf_counter()
+    V, beta, R = _qr_host(qr["at_ref"], qr["ls_ref"], qr["ls_ref"].q)
+    t_qr = time.perf_counter() - t0
+    launches = {"qrsol_serve": 0, "qrsol_multi": 0}
+    sweeps, max_abs = [], 0.0
+    for label in ("ls", "mn"):
+        a = qr["a"] if label == "ls" else qr["aw"]
+        m, n = a.m, a.n
+        s, s_qr = qr["gram"], qr[label]
+        B = rng.standard_normal((m, NRHS))
+        amul, atmul = coo_mul(a, device)
+        Bd = torch.as_tensor(B, device=device)
+        scale = max(1.0, float(np.abs(B).max()))
+
+        def oracle(X):
+            Xd = torch.as_tensor(X, device=device)
+            r = Bd - amul(Xd)
+            return float((atmul(r) if label == "ls" else r).abs().max())
+
+        bound = (1e-8 if label == "ls" else 1e-10) * scale
+        reset_counts()
+        t0 = time.perf_counter()
+        h = qrsol_serve(a, 2, sym=s, device=device)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        xs, walls = timed_calls(lambda: h(Bd), REQUESTS)
+        n_serve = read_counts()["sptrsv_sweep"]
+        launches["qrsol_serve"] += n_serve
+        check(h.available, f"qrsol_serve {label}: the kernel does not take "
+              "the Gram factor's plans")
+        check(n_serve >= 2 * REQUESTS, f"qrsol_serve {label}: only "
+              f"{n_serve} kernel launches in {REQUESTS} requests")
+        reset_counts()
+        routes = []
+
+        def multi():
+            X = qrsol_multi(a, B, 2, sym=s, device=device)
+            routes.append(s._multi_route)
+            return X
+
+        xm, mwalls = timed_calls(multi, 2)
+        n_multi = read_counts()["sptrsv_sweep"]
+        launches["qrsol_multi"] += n_multi
+        t0 = time.perf_counter()
+        Xh = host_qr_apply(label, V, beta, R, qr["ls_ref"], B, m, n)
+        t_apply = time.perf_counter() - t0
+        answers = [X.cpu().numpy() for X in xs] + xm
+        opts = [oracle(X) for X in answers]
+        devs = [float(np.abs(X - Xh).max() / max(1.0, np.abs(Xh).max()))
+                for X in answers]
+        cols = max(float(np.abs(answers[-1][:, j] - x).max()
+                         / max(1.0, np.abs(x).max()))
+                   for j, x in enumerate(
+                       qrsol(a, B[:, j].copy(), 2, sym=s_qr, device=device)
+                       for j in range(2)))
+        print(f"qrsol_serve {label}: m={m} n={n} B={NRHS} route="
+              f"{h.factor_route} build_s={t_build:.4f} request_wall_s="
+              f"{walls_txt(walls)} last_residual={h.last_residual:.3e} "
+              f"sweep_launches={n_serve}", flush=True)
+        print(f"qrsol_multi {label}: routes={','.join(routes)} wall_s="
+              f"{walls_txt(mwalls)} oracle_max={max(opts):.3e} (bound "
+              f"{bound:.3e}) qrsol_cols_rel_diff={cols:.3e} host_rel_diff="
+              f"{max(devs):.3e} host_engine_qr_s={t_qr:.4f} "
+              f"host_engine_128_applies_s={t_apply:.4f} "
+              f"sweep_launches={n_multi}", flush=True)
+        for X in answers:
+            check(X.shape == (n, NRHS) and bool(np.isfinite(X).all()),
+                  f"qrsol {label}: bad batched answer")
+        check(set(routes) == {"serve"}, f"qrsol_multi {label} routes "
+              f"{routes}, not all the serving handle")
+        check(n_multi >= 4, f"qrsol_multi {label}: only {n_multi} kernel "
+              "launches in 2 calls")
+        check(max(opts) <= bound, f"qrsol {label} batched: oracle "
+              f"{max(opts):.3e} over {bound:.3e}")
+        check(cols <= 1e-8, f"qrsol_multi {label}: columns differ from "
+              f"qrsol by {cols:.3e}")
+        check(max(devs) <= 1e-8, f"qrsol {label} batched: differs from "
+              f"the C++ engine by {max(devs):.3e}")
+        print(f"qrsol_serve {label} profile (1 request): "
+              + device_profile(lambda: h(Bd), 1), flush=True)
+        if label == "ls":  # the minimum norm's Gram sweeps are the same
+            out, err = replay_new("qrsol_serve", record_sweeps(lambda: h(Bd)),
+                                  lambda dt, b: True)
+            sweeps += out
+            max_abs = max(max_abs, err)
+    return launches["qrsol_serve"], launches["qrsol_multi"], sweeps, max_abs
+
+
+def multi_cholsol_ir(lap, lap_sym, seed: int, device: str):
+    """cholsol_ir on D A D (A the CHOL_GRID Laplacian, D = 1 + 0.1 U(0, 1)
+    from the seed: values that lose bits in float32), one b, float32,
+    refine = 3: held to cholsol on the same matrix (phase 8's analysis)
+    and timed beside the C++ engine's factorization and solve; its f32
+    B = 1 sweeps replayed. Returns (launches, sweep numbers, the largest
+    kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, cholsol, cholsol_ir
+    from rsparse_tpu_torch.ops.plan import col_ids
+
+    n, nz = lap.n, lap.nnz()
+    rng = np.random.default_rng(seed + 14)
+    d = 1.0 + 0.1 * rng.random(n)
+    dad = Sprs(nz, n, n, lap.p, lap.i[:nz],
+               lap.x[:nz] * d[lap.i[:nz]] * d[col_ids(lap.p, n)])
+    b = rng.standard_normal(n)
+    reset_counts()
+    bl = b.copy()
+    (x,), walls = timed_calls(
+        lambda: cholsol_ir(dad, bl, 1, "float32", 3, device=device), 1)
+    launches = read_counts()["sptrsv_sweep"]
+    check(np.array_equal(bl, x), "cholsol_ir: b not overwritten")
+    xc = cholsol(dad, b.copy(), 1, sym=lap_sym, device=device)
+    t0 = time.perf_counter()
+    xh = chol_host_solves(n, chol_host_factor(dad, lap_sym),
+                          np.asarray(lap_sym.pinv, np.int64), b[:, None])[:, 0]
+    t_host = time.perf_counter() - t0
+    dev = float(np.abs(x - xc).max() / max(1.0, np.abs(xc).max()))
+    hdev = float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+    print(f"cholsol_ir: n={n} float32 refine=3 wall_s={walls_txt(walls)} "
+          f"host_engine_chol_plus_solve_s={t_host:.4f} cholsol_rel_diff="
+          f"{dev:.3e} host_rel_diff={hdev:.3e} sweep_launches={launches}",
+          flush=True)
+    check(bool(np.isfinite(x).all()) and x.shape == (n,),
+          "cholsol_ir: bad answer")
+    check(dev <= 1e-8, f"cholsol_ir differs from cholsol by {dev:.3e}")
+    check(launches >= 2, f"cholsol_ir: only {launches} kernel launches")
+    seen = {}
+    call = lambda: seen.update(record_sweeps(lambda: cholsol_ir(
+        dad, b.copy(), 1, "float32", 3, device=device)))
+    print("cholsol_ir profile (1 call, its sweeps recorded): "
+          + device_profile(call, 1), flush=True)
+    sweeps, err = replay_new("cholsol_ir", seen,
+                             lambda dt, B: B == 1 and dt == torch.float32)
+    return launches, sweeps, err
+
+
+def phase_multi(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
+                device: str = "cuda"):
+    """Phase 11: the batched and serving drivers at full width, each
+    driven with the launch counts set to 0 just before it and read just
+    after. Returns (launches by path, the new sweeps' numbers, the largest
+    kernel difference)."""
+    t0 = time.perf_counter()
+    by_path, sweeps, max_abs = {}, [], 0.0
+    by_path["cholsol_multi"], out, err = multi_cholsol(lap, lap_sym, seed,
+                                                       device)
+    sweeps, max_abs = sweeps + out, max(max_abs, err)
+    by_path["lusol_multi"] = multi_lusol(a, lu_sym, seed, device)
+    by_path["qrsol_serve"], by_path["qrsol_multi"], out, err = multi_qrsol(
+        qr, seed, device)
+    sweeps, max_abs = sweeps + out, max(max_abs, err)
+    by_path["cholsol_ir"], out, err = multi_cholsol_ir(lap, lap_sym, seed,
+                                                       device)
+    sweeps, max_abs = sweeps + out, max(max_abs, err)
+    print(f"multi: phase_s={time.perf_counter() - t0:.1f} sweep_launches="
+          f"{by_path}", flush=True)
+    return by_path, sweeps, max_abs
 
 
 def main(argv=None) -> int:
@@ -1563,11 +1927,13 @@ def main(argv=None) -> int:
         launches = phase_main(a, args.seed)
         dia, dia_err, dia_counts = phase_dia(args.seed)
         spmm, spmm_err, spmm_counts = phase_spmm(args.seed)
-        lusol_launches = phase_lusol(a, args.seed)
+        lusol_launches, lu_sym = phase_lusol(a, args.seed)
         lap, lap_sym, cholsol_launches = phase_cholsol(args.seed)
         serve_launches, kind2, kind2_err = phase_cholsol_serve(
             lap, lap_sym, args.seed)
-        qr_launches, r_sweeps, r_err = phase_qrsol(args.seed)
+        qr_launches, r_sweeps, r_err, qr = phase_qrsol(args.seed)
+        multi_paths, multi_sweeps, multi_err = phase_multi(
+            a, lu_sym, lap, lap_sym, qr, args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1578,15 +1944,16 @@ def main(argv=None) -> int:
         library_ms=t["library_ms"])
     by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
                "cholsol": cholsol_launches, "lusol": lusol_launches,
-               "qrsol": qr_launches}
+               "qrsol": qr_launches, **multi_paths}
     print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
           f"sweep: {kind2}", flush=True)
     sweep = entry("sptrsv_sweep", "sptrsv.cu",
                   "rsparse_tpu/ops/sptrsv_pallas.py:191",
-                  sum(by_path.values()), max(max_abs, kind2_err, r_err),
-                  main_ms)
+                  sum(by_path.values()),
+                  max(max_abs, kind2_err, r_err, multi_err), main_ms)
     sweep["launches_by_path"] = by_path
     sweep["qr_r_sweeps"] = r_sweeps
+    sweep["multi_sweeps"] = multi_sweeps
     print(json.dumps({"kernels": [
         sweep,
         entry("spmm_stream", "spmm.cu", "rsparse_tpu/ops/spmm_pallas.py:105",

@@ -4,8 +4,9 @@ A second implementation of the sparse direct-solver framework, for one
 NVIDIA H100 (sm_90a), checked against the JAX package it is ported from.
 It imports torch and numpy, never jax or rsparse_tpu.
 
-Ported so far (the `lusol_serve` slice, the L2 operator slice, and the
-direct solvers `lusol`/`cholsol`/`qrsol`):
+Ported so far (the `lusol_serve` slice, the L2 operator slice, the
+direct solvers `lusol`/`cholsol`/`qrsol`, and the batched and serving
+drivers):
   - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), and
     `convert` to build them from plain numpy fields.
   - L2' ops: `add`, `multiply`, `transpose`, `gaxpy`, `norm`, `scpmat`,
@@ -17,7 +18,8 @@ direct solvers `lusol`/`cholsol`/`qrsol`):
     are hand-written CUDA (`csrc/`), each with a plain torch version for
     the CPU.
   - L3' symbolic: `sqr`/`schol`/AMD/etree/postorder on the native C++
-    engine, compiled from the JAX package's source at first use.
+    engine, compiled at first use from the port's own copy of its source
+    (`native/rsymbolic.cpp`).
   - L4' factorization: `lu` — multifrontal LU with threshold pivoting
     inside fronts, the level-scheduled LU below `config.mf_min_n`, and the
     host engine's exact partial pivoting as the fallback; `chol` —
@@ -33,9 +35,11 @@ direct solvers `lusol`/`cholsol`/`qrsol`):
     refinement on device, host-exact escape); `qrsol` (least squares and
     minimum norm on the multifrontal QR, with an acceptance gate and a
     host-exact escape) and `qrsol_ls` (CSNE on the Cholesky factorization
-    of A'A); the `lusol_serve` and
-    `cholsol_serve` handles (float32 sweeps + float64 refinement on
-    device).
+    of A'A); the `lusol_serve`, `cholsol_serve` and `qrsol_serve` handles
+    (float32 sweeps + float64 refinement on device); the batched drivers
+    `cholsol_multi`, `lusol_multi` and `qrsol_multi` (numpy [n, nrhs] out,
+    the serving branch behind `config.serve_mixed`) and the
+    mixed-precision `cholsol_ir`.
 
 The device-facing entry points take an explicit `device` argument, which
 defaults to the card ("cuda").
@@ -78,6 +82,11 @@ from .solve import (
     cholsol_serve,
     qrsol,
     qrsol_ls,
+    cholsol_multi,
+    lusol_multi,
+    qrsol_multi,
+    qrsol_serve,
+    cholsol_ir,
 )
 from .symbolic import schol, sqr
 from .factor import chol, lu, qr
@@ -94,6 +103,7 @@ __all__ = [
     "lsolve", "ltsolve", "usolve", "utsolve",
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
     "lusol", "cholsol", "lusol_serve", "cholsol_serve", "qrsol", "qrsol_ls",
+    "cholsol_multi", "lusol_multi", "qrsol_multi", "qrsol_serve", "cholsol_ir",
     "schol", "sqr", "chol", "lu", "qr",
     "sprs_from_fields", "symb_from_fields",
 ]

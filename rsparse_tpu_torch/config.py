@@ -3,8 +3,8 @@
 The reference library (rsparse) exposes exactly two behavioural knobs —
 `order` and `tol` — as positional parameters; they stay on the public solver
 APIs. This layer holds the few package-wide options: the value and index
-dtypes, the numeric backend, and the size at which `lu` switches to the
-multifrontal path. The device is not a config option: the device-facing
+dtypes, the numeric backend, the size at which `lu` switches to the
+multifrontal path, and when the batched drivers take the serving path. The device is not a config option: the device-facing
 entry points take it as an argument.
 """
 
@@ -27,6 +27,11 @@ class Config:
     backend: str = os.environ.get("RSPARSE_TORCH_BACKEND", "device")
     # Minimum n for the multifrontal LU; below it the level-scheduled LU runs.
     mf_min_n: int = 1500
+    # Serving path of the batched drivers (cholsol_multi's level route,
+    # qrsol_multi): float32 sweeps plus float64 refinement through a cached
+    # serve handle. "auto" takes it on a CUDA device, "force" on any device
+    # (on the CPU through the plain sweep), "off" never.
+    serve_mixed: str = "auto"
 
 
 config = Config()

@@ -18,9 +18,14 @@ f64 iterative refinement (`_lu_one_shot`, `_chol_one_shot`), with the host
 engine's exact factors as the escape when refinement falls short. Below it, or
 when the multifrontal plan does not apply or LU's pivot margin rejects the
 static pivots, they factor with `factor.lu`/`factor.chol` and run the
-single-RHS solves. `lusol_serve`/`cholsol_serve` build a device-resident
-handle for batches of right-hand sides: float32 sweeps of the whole
-factor through the kernel plus f64 refinement. `qrsol` runs the
+single-RHS solves. `lusol_serve`/`cholsol_serve`/`qrsol_serve` build a
+device-resident handle for batches of right-hand sides: float32 sweeps of
+the whole factor through the kernel plus f64 refinement (CSNE steps for
+`qrsol_serve`). The batched drivers `cholsol_multi`, `lusol_multi` and
+`qrsol_multi` answer B[n, nrhs] on one factorization (the multifrontal
+tree, a cached serve handle, or f64 sweeps over all columns), and
+`cholsol_ir` factors A's values rounded to a lower precision and refines
+in f64. `qrsol` runs the
 multifrontal QR at or above `config.mf_min_n` (the tree's Qᵀb or Q·x and
 one R sweep, held to an acceptance gate, the host engine's exact QR as the
 escape), `factor.qr` and the reference's apply below it; `qrsol_ls` solves
@@ -55,6 +60,7 @@ __all__ = [
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
     "lusol", "cholsol", "lusol_serve", "cholsol_serve",
     "happly_dense", "qrsol", "qrsol_ls",
+    "cholsol_multi", "lusol_multi", "qrsol_multi", "qrsol_serve", "cholsol_ir",
 ]
 
 
@@ -454,21 +460,36 @@ def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor,
         0, Mi, Mx[:, None] * X[Mj])
 
 
-def _refine(solve_once, amul, B64: torch.Tensor, steps: int):
-    """X = solve_once(B64), then up to `steps` steps of f64 iterative
-    refinement against `amul`, keeping the best iterate and stopping once
-    converged (max|r| <= 1e-13 max(1, max|B|)) or stagnant. Reads max|r|
+def _host_spmm_t(a: Sprs, R: np.ndarray) -> np.ndarray:
+    """Z = A' @ R for R [m, B] via A's own entry stream (no transpose),
+    host numpy: one segment sum per column of A."""
+    nz = a.nnz()
+    Z = np.zeros((a.n, R.shape[1]), dtype=np.float64)
+    if nz:
+        prod = np.asarray(a.x[:nz], np.float64)[:, None] * R[a.i[:nz]]
+        full = np.nonzero(np.diff(a.p))[0]
+        Z[full] = np.add.reduceat(prod, a.p[full], axis=0)
+    return Z
+
+
+def _refine(correct, resid, B64: torch.Tensor, steps: int, first=None):
+    """X = correct(first) (first: B64 when None), then up to `steps` steps
+    X += correct(r) with r = resid(X), keeping the best iterate and
+    stopping once converged (max|r| <= 1e-13 max(1, max|B64|)) or stagnant.
+    The square solves pass their solve and resid(X) = B - AX; the CSNE
+    handle (`qrsol_serve`) the Gram solve (then A' for m < n) and the
+    least-squares gradient A'(B - AX) (B - AX for m < n). Reads max|r|
     back once per step. Returns (X, max|r| as a float)."""
-    X = solve_once(B64)
-    r = B64 - amul(X)
+    X = correct(B64 if first is None else first)
+    r = resid(X)
     rmax = float(r.abs().max())
     scale = max(float(B64.abs().max()), 1.0)
     # well-conditioned systems exit after one check; weak static-pivot
     # factors (element growth) get the extra contractions they need
     k, prev = 0, float("inf")
     while k < steps and rmax > 1e-13 * scale and rmax < prev:
-        X2 = X + solve_once(r)
-        r2 = B64 - amul(X2)
+        X2 = X + correct(r)
+        r2 = resid(X2)
         rmax2 = float(r2.abs().max())
         if rmax2 < rmax:
             X, r = X2, r2
@@ -476,17 +497,35 @@ def _refine(solve_once, amul, B64: torch.Tensor, steps: int):
     return X, rmax
 
 
+def _permuted(solve, p: Optional[torch.Tensor]):
+    """R -> P' solve(P R) for the row permutation p (Z[p[i]] = R[i] on the
+    way in, X[i] = Y[p[i]] on the way out; None = identity)."""
+    if p is None:
+        return solve
+    return lambda R: solve(torch.zeros_like(R).index_copy_(0, p, R))[p]
+
+
 def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
-                       device):
-    """Build a device-resident batched solve handle `h(B[n, nrhs]) -> X`.
+                       device, m: Optional[int] = None):
+    """Build a device-resident batched solve handle `h(B) -> X`.
 
     chain: [(TriPlan, f64 values (array or tensor), kind), ...] — float32
-    SpTRSV sweeps run in order. pin/pout: row permutations (Bp[pin[i]] = B[i] on the way in,
-    X[i] = Xs[pout[i]] on the way out; None = identity). (Mi, Mj, Mx): COO
-    of the f64 residual matrix in ORIGINAL row order — up to `refine`
-    iterative-refinement steps run on device against it. The factor values
-    and index tensors stay on `device` across calls; `h.chain` holds the
-    sweeps as (TriPlan, float32 values, kind)."""
+    SpTRSV sweeps run in order. pin/pout: row permutations (Bp[pin[i]] =
+    B[i] on the way in, X[i] = Xs[pout[i]] on the way out; None =
+    identity). (Mi, Mj, Mx): COO of the f64 matrix A in ORIGINAL row order.
+    Square (m None): the chain solves A, and h(B[n, nrhs]) runs it and up
+    to `refine` iterative-refinement steps against A. Rectangular (A is
+    m x n, `qrsol_serve`): the chain solves the Gram matrix (A'A for
+    m >= n, AA' for m < n), and h(B[m, nrhs]) -> X[n, nrhs] runs up to
+    `refine` corrected-seminormal-equation steps against A. Every step
+    runs on `device`, in `_refine`'s one loop.
+
+    This is also the counterpart of the JAX package's `_chain_prep`: the
+    float32 values of each sweep are made here once, and the kernel's
+    per-sweep index streams, the specs of the chain and the value prepass
+    (`ops.sptrsv_cuda._values`) are cached with the plans at the first
+    sweep. The factor values and index tensors stay on `device` across
+    calls; `h.chain` holds the sweeps as (TriPlan, float32 values, kind)."""
     dev = torch.device(device)
     sweeps = [(plan, torch.as_tensor(vals, device=dev).to(torch.float32), kind)
               for plan, vals, kind in chain]
@@ -504,17 +543,59 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
         Xs = Z.to(torch.float64, memory_format=torch.contiguous_format)
         return Xs if pout_d is None else Xs[pout_d]
 
-    amul = _coo_amul(Mi_d, Mj_d, Mx_d)
+    amul = _coo_amul(Mi_d, Mj_d, Mx_d, m)  # A
+    atmul = _coo_amul(Mj_d, Mi_d, Mx_d, n)  # A' (rectangular only)
+    tall = m is None or m >= n
+    correct = solve_full if tall else lambda r: atmul(solve_full(r))
 
     def handle(B):
         B64 = torch.as_tensor(B, device=dev).to(torch.float64)
-        X, rmax = _refine(solve_full, amul, B64, refine)
+        if m is not None and tall:  # least squares: the gradient A'(B - AX)
+            resid, first = lambda X: atmul(B64 - amul(X)), atmul(B64)
+        else:  # A X = B; the minimum norm's X = A'(AA')^-1 B
+            resid, first = lambda X: B64 - amul(X), None
+        X, rmax = _refine(correct, resid, B64, refine, first)
         handle.last_residual = rmax
         return X
 
     handle.last_residual = None
     handle.chain = sweeps
     return handle
+
+
+def _sweeps_fit(plans, device) -> bool:
+    """Whether the sweep kernel takes every plan in float32 on `device`
+    (`ops.sptrsv_cuda.launch_config`: a dense block that fits its shared
+    memory); always True off a card, where the plain sweep takes any
+    plan. The counterpart of the JAX package's `pallas_sweep_available`."""
+    from .ops.sptrsv_cuda import launch_config
+
+    if torch.device(device).type != "cuda":
+        return True
+    try:
+        for plan in plans:
+            launch_config(plan, torch.float32, device)
+    except ValueError:
+        return False
+    return True
+
+
+def _serve_enabled(device) -> bool:
+    """Whether the batched drivers take the serving path on `device`
+    (`config.serve_mixed`: "auto" on a CUDA device, "force" anywhere)."""
+    return (config.serve_mixed == "force"
+            or (config.serve_mixed == "auto"
+                and torch.device(device).type == "cuda"))
+
+
+def _chol_tri_plans(s: Symb, nm: Nmrc):
+    """The sweep plans (kinds 0 and 2) of nm.l, cached on the analysis per
+    factor route (the factor's pattern is fixed per analysis and route)."""
+    tc = s.__dict__.setdefault("_tri_cache", {})
+    key = getattr(s, "_chol_route", None)
+    if key not in tc:
+        tc[key] = (tri_plan(nm.l, 0), tri_plan(nm.l, 2))
+    return tc[key]
 
 
 def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
@@ -600,6 +681,20 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
     return h
 
 
+def _chol_serve_handle(a: Sprs, s: Symb, nm: Nmrc, refine: int, dev):
+    """The SPD serve handle on Cholesky factors nm of a (analysis s): the
+    L then L' float32 sweeps and refinement against the symmetrized
+    matrix chol factored."""
+    lx = device_values(nm, "l", dev)
+    # P b enters as Bp[pinv[i]] = b[i] (ipvec) and leaves as x[i] =
+    # Xs[pinv[i]] (pvec): pin = pout = pinv in the handle's convention
+    pinv = np.asarray(s.pinv, np.int64) if s.pinv is not None else None
+    Mi, Mj, Mx = _sym_coo(a, s.pinv)
+    p0, p2 = _chol_tri_plans(s, nm)
+    return _make_serve_handle(a.n, [(p0, lx, 0), (p2, lx, 2)], pinv, pinv,
+                              Mi, Mj, Mx, refine, dev)
+
+
 def cholsol_serve(a: Sprs, order: int = 0, *, sym: Optional[Symb] = None,
                   refine: int = 8, device="cuda"):
     """Device-resident batched SPD solve handle: `h(B[n, nrhs]) -> X` with
@@ -626,14 +721,7 @@ def cholsol_serve(a: Sprs, order: int = 0, *, sym: Optional[Symb] = None,
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t2 = time.perf_counter()
-    lx = device_values(nm, "l", dev)
-    # P b enters as Bp[pinv[i]] = b[i] (ipvec) and leaves as x[i] =
-    # Xs[pinv[i]] (pvec): pin = pout = pinv in the handle's convention
-    pinv = np.asarray(s.pinv, np.int64) if s.pinv is not None else None
-    Mi, Mj, Mx = _sym_coo(a, s.pinv)
-    h = _make_serve_handle(
-        a.n, [(tri_plan(nm.l, 0), lx, 0), (tri_plan(nm.l, 2), lx, 2)],
-        pinv, pinv, Mi, Mj, Mx, refine, dev)
+    h = _chol_serve_handle(a, s, nm, refine, dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     h.sym = s
@@ -665,7 +753,8 @@ def _lu_refine_body(plan, n: int, B64: torch.Tensor, cache, Mi, Mj, Mx,
         Y = _solve_lu_mf_dev(plan, Z.to(ft), cache).to(torch.float64)
         return Y if q is None else torch.zeros_like(Y).index_copy_(0, q, Y)
 
-    X, rmax = _refine(solve_once, _coo_amul(Mi, Mj, Mx), B64, steps)
+    amul = _coo_amul(Mi, Mj, Mx)
+    X, rmax = _refine(solve_once, lambda X: B64 - amul(X), B64, steps)
     return X, rmax, float(X.abs().max())
 
 
@@ -873,14 +962,11 @@ def _chol_mf_solve_fused(a: Sprs, s, mfp, Bm: np.ndarray, steps: int):
     _, _, Mi, Mj, p = _chol_oneshot_maps(a, s, dev)
     _, Mx = _chol_values(a, s, mfp, dev)
     ft = tree[1].dtype
-
-    def solve_once(R):  # original order in and out
-        Z = R if p is None else torch.zeros_like(R).index_copy_(0, p, R)
-        Y = _solve_mf_dev(mfp, Z.to(ft), tree).to(torch.float64)
-        return Y if p is None else Y[p]
-
+    solve_once = _permuted(  # original order in and out
+        lambda Z: _solve_mf_dev(mfp, Z.to(ft), tree).to(torch.float64), p)
     B64 = torch.as_tensor(np.asarray(Bm, np.float64), device=dev)
-    X, rmax = _refine(solve_once, _coo_amul(Mi, Mj, Mx), B64, steps)
+    amul = _coo_amul(Mi, Mj, Mx)
+    X, rmax = _refine(solve_once, lambda X: B64 - amul(X), B64, steps)
     return X.cpu().numpy(), rmax, float(X.abs().max())
 
 
@@ -1144,6 +1230,51 @@ def qrsol(a: Sprs, b, order: int = 2, *, sym: Optional[Symb] = None,
     return out
 
 
+def _gram(a: Sprs, device) -> Sprs:
+    """The Gram matrix CSNE factors: A'A when m >= n, AA' when m < n."""
+    at = ops.transpose(a, device=device)
+    return (ops.multiply(at, a, device=device) if a.m >= a.n
+            else ops.multiply(a, at, device=device))
+
+
+def _csne(a: Sprs, g: Sprs, s: Symb, B64: torch.Tensor, refine: int,
+          device) -> torch.Tensor:
+    """Corrected seminormal equations on `device` for B64 [m, nrhs] (a
+    tensor there): the f64 Cholesky of the Gram matrix g (analysis s),
+    its solves (the multifrontal tree, or the two sweeps of L on the level
+    or host routes), X = G⁻¹A'B (X = A'G⁻¹B for m < n), then `refine`
+    steps X += G⁻¹A'(B - AX) (X += A'G⁻¹(B - AX)). Returns X [n, nrhs]."""
+    from .factor import chol
+    from .factor.frontal import _solve_mf_dev
+
+    m, n = a.m, a.n
+    nm = chol(g, s, device=device)
+    dev = torch.device(device)
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+    if s._chol_route == "device_mf":
+        mfp = s._mf_plan
+        tree = mfp.__dict__["_cache_tree"]
+        solve = lambda z: _solve_mf_dev(mfp, z, tree)
+    else:
+        lx = device_values(nm, "l", dev)
+        tp0, tp2 = _chol_tri_plans(s, nm)
+        solve = lambda z: sptrsv_multi(lx, sptrsv_multi(lx, z, tp0, 0), tp2, 2)
+    spd_solve = _permuted(solve, ix(s.pinv) if s.pinv is not None else None)
+    nz = a.nnz()
+    rows, cols = ix(a.i[:nz]), ix(col_ids(a.p, n))
+    ax = torch.as_tensor(np.asarray(a.x[:nz], np.float64), device=dev)
+    amul = _coo_amul(rows, cols, ax, m)  # A
+    atmul = _coo_amul(cols, rows, ax, n)  # A'
+    if m >= n:
+        correct = lambda r: spd_solve(atmul(r))
+    else:  # minimum norm: X = A'(AA')⁻¹ B
+        correct = lambda r: atmul(spd_solve(r))
+    X = correct(B64)
+    for _ in range(max(0, refine)):
+        X = X + correct(B64 - amul(X))
+    return X
+
+
 def qrsol_ls(a: Sprs, b, order: int = 2, refine: int = 2, *,
              sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
     """Least-squares / minimum-norm solve by corrected seminormal equations
@@ -1155,47 +1286,286 @@ def qrsol_ls(a: Sprs, b, order: int = 2, refine: int = 2, *,
     AA') analysis. The factorization, its solves and the refinement run on
     `device`; b is not overwritten. No reference counterpart.
     """
+    from .symbolic import schol
+
+    g = _gram(a, device)
+    s = sym if sym is not None else schol(g, order)
+    b64 = torch.as_tensor(np.asarray(b, np.float64), device=device)[:, None]
+    return _csne(a, g, s, b64, refine, device)[:, 0].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Batched and serving drivers: many right-hand sides on one factorization
+# ---------------------------------------------------------------------------
+
+
+def qrsol_serve(a: Sprs, order: int = 2, *, sym: Optional[Symb] = None,
+                refine: int = 8, device="cuda"):
+    """Device-resident batched least-squares / minimum-norm solve handle:
+    `h(B[m, nrhs]) -> X[n, nrhs]` with `qrsol_ls` (CSNE) semantics — min
+    ||AX - B|| for m >= n, the minimum-norm solution for m < n.
+
+    One f64 Cholesky of the Gram matrix (A'A, or AA' when m < n) on
+    `device`, then every `h(B)` call runs the Gram solve as two float32
+    SpTRSV sweeps (L then L') and up to `refine` early-exit steps of
+    corrected-seminormal-equation refinement (r = B - AX on the f64 A,
+    correction G⁻¹A'r; A'G⁻¹r for m < n), on `device`. B may be a numpy
+    array or a tensor; X is an f64 tensor on `device`. `sym`: a previous
+    `schol` of that Gram matrix (ValueError when it analyses a system of
+    another dimension). `h.last_residual` holds the final max of the
+    least-squares gradient |A'(B - AX)| (of |B - AX| for m < n),
+    `h.factor_route` the Gram factor's route, and `h.available` whether
+    the sweep kernel takes the Gram factor's plans on `device` (True off a
+    card); when it is False, h(B) raises ValueError. No reference
+    counterpart (the reference's qrsol is single-RHS, src/lib.rs:927-956).
+    """
+    from .factor import chol
+    from .symbolic import schol
+
+    dev = torch.device(device)
+    m, n = a.m, a.n
+    g = _gram(a, dev)
+    k = g.n
+    s = sym if sym is not None else schol(g, order)
+    if sym is not None and s.parent is not None and len(s.parent) != k:
+        raise ValueError(
+            f"sym analyzes a {len(s.parent)}-dim system but the Gram "
+            f"matrix here is {k}x{k} (A'A for m>=n, AA' for m<n) — pass "
+            "schol of the matching Gram")
+    nm = chol(g, s, device=dev)
+    lx = device_values(nm, "l", dev)
+    p0, p2 = _chol_tri_plans(s, nm)
+    pinv = np.asarray(s.pinv, np.int64) if s.pinv is not None else None
+    nz = a.nnz()
+    h = _make_serve_handle(n, [(p0, lx, 0), (p2, lx, 2)], pinv, pinv,
+                           a.i[:nz], col_ids(a.p, n), a.x[:nz], refine, dev,
+                           m=m)
+    # without a fit the first sweep raises ValueError (launch_config)
+    h.available = _sweeps_fit((p0, p2), dev)
+    h.sym = s
+    h.factor_route = s._chol_route
+    return h
+
+
+def _serve_sweeps_mixed(a: Sprs, s: Symb, nm: Nmrc, Bm: np.ndarray, device):
+    """cholsol_multi's serving branch: the SPD serve handle (float32 sweeps
+    + f64 refinement on `device` against the SYMMETRIZED matrix chol
+    factored), cached on s and rebuilt when A's values or the device
+    change, with numpy in and out. Returns the solved [n, B] in original
+    row order, or None when the path does not apply (fewer than 8 RHS,
+    `config.serve_mixed`, a factor the kernel does not take) or when the
+    host f64 oracle misses 1e-9·max(1, max|B|) (the caller takes the exact
+    f64 sweeps)."""
+    nrhs = Bm.shape[1] if Bm.ndim == 2 else 0
+    if not _serve_enabled(device) or nrhs < 8:
+        return None
+    dev = _card(device)
+    if not _sweeps_fit(_chol_tri_plans(s, nm), dev):
+        return None
+    key = (_values_fp(a), str(dev))
+    handles = s.__dict__.setdefault("_serve_handles", {})
+    h = handles.get("chol")
+    if h is None or h._values_fp != key:
+        h = _chol_serve_handle(a, s, nm, 8, dev)
+        h._values_fp = key
+        handles["chol"] = h
+    X = h(Bm).cpu().numpy()
+    # the oracle: the residual against triu(PAP') mirrored, on the host
+    Mi, Mj, Mx = _sym_coo(a, s.pinv)
+    R = Bm.copy()
+    np.add.at(R, Mi, -Mx[:, None] * X[Mj])
+    if float(np.abs(R).max()) < 1e-9 * max(1.0, float(np.abs(Bm).max())):
+        return X
+    return None  # conditioning beyond f32 refinement: exact path instead
+
+
+def cholsol_multi(a: Sprs, B, order: int = 0, *, sym: Optional[Symb] = None,
+                  device="cuda") -> np.ndarray:
+    """Batched SPD solve: B is [n, nrhs]; returns X [n, nrhs] (numpy) with
+    A X = B (chol semantics: the symmetrized triu(PAP')).
+
+    `chol` on `device`, then the multifrontal tree solve when chol took
+    the multifrontal route; else the serving branch (`_serve_sweeps_mixed`,
+    with `config.serve_mixed`); else two f64 sweeps of L over all columns
+    on `device`, their plans cached on the analysis. `s._multi_route`
+    reads "device_mf", "serve", "device_level" or "host". Pass `sym` to
+    reuse the analysis and plans across calls with one pattern. No
+    reference counterpart (the reference is single-RHS)."""
     from .factor import chol
     from .factor.frontal import _solve_mf_dev
     from .symbolic import schol
 
-    m, n = a.m, a.n
-    at = ops.transpose(a, device=device)
-    g = ops.multiply(at, a, device=device) if m >= n else ops.multiply(
-        a, at, device=device)
-    k = g.n
-    s = sym if sym is not None else schol(g, order)
-    nm = chol(g, s, device=device)
-    mfp = getattr(s, "_mf_plan", None)
-    tree = (mfp.__dict__.get("_cache_tree")
-            if s._chol_route == "device_mf" else None)
+    s = sym if sym is not None else schol(a, order)
+    nm = chol(a, s, device=device)
+    Bm = np.asarray(B, dtype=np.float64)
+    if s._chol_route == "device_mf":
+        mfp = s._mf_plan
+        tree = mfp.__dict__["_cache_tree"]
+        dev = tree[1].device
+        solve = lambda Z: _solve_mf_dev(mfp, Z, tree)
+        s._multi_route = "device_mf"
+    else:
+        out = _serve_sweeps_mixed(a, s, nm, Bm, device)
+        if out is not None:
+            s._multi_route = "serve"
+            return out
+        dev = torch.device(device)
+        lx = device_values(nm, "l", dev)
+        p0, p2 = _chol_tri_plans(s, nm)
+        solve = lambda Z: sptrsv_multi(lx, sptrsv_multi(lx, Z, p0, 0), p2, 2)
+        s._multi_route = s._chol_route
+    p = (torch.as_tensor(np.asarray(s.pinv, np.int64), device=dev)
+         if s.pinv is not None else None)
+    X = _permuted(solve, p)(torch.as_tensor(Bm, device=dev))
+    return X.cpu().numpy()
+
+
+def _lu_sweeps(nm: Nmrc, s: Symb, Bm: np.ndarray, device) -> np.ndarray:
+    """X = Q U⁻¹ L⁻¹ P B for B [n, nrhs] on nm's factors: two f64 sweeps
+    over all columns on `device`. Returns numpy."""
     dev = torch.device(device)
     ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=dev)
-    pinv = ix(s.pinv) if s.pinv is not None else None
-    if tree is None:
-        lx = device_values(nm, "l", dev)
-        tp0, tp2 = tri_plan(nm.l, 0), tri_plan(nm.l, 2)
+    B = torch.as_tensor(Bm, device=dev)
+    Z = (B if nm.pinv is None
+         else torch.zeros_like(B).index_copy_(0, ix(nm.pinv), B))
+    Z = sptrsv_multi(device_values(nm, "l", dev), Z, tri_plan(nm.l, 0), 0)
+    Z = sptrsv_multi(device_values(nm, "u", dev), Z, tri_plan(nm.u, 1), 1)
+    if s.q is not None:
+        Z = torch.zeros_like(Z).index_copy_(0, ix(s.q), Z)
+    return Z.cpu().numpy()
 
-    def spd_solve(r):  # (G)⁻¹ r for r [k, 1], G = P'LL'P
-        z = r if pinv is None else torch.zeros_like(r).index_copy_(0, pinv, r)
-        if tree is not None:
-            z = _solve_mf_dev(mfp, z, tree)
-        else:
-            z = sptrsv_multi(lx, sptrsv_multi(lx, z, tp0, 0), tp2, 2)
-        return z if pinv is None else z[pinv]
 
+def _lu_mf_refine(a: Sprs, s: Symb, tol: float, Bm: np.ndarray, shot,
+                  device) -> np.ndarray:
+    """lusol_multi's acceptance of the multifrontal one-shot: its X when
+    the refined residual reached 1e-10·max(1, max|B|, max|X|), else the
+    host engine's exact partial pivoting with the caller's tol and its f64
+    sweeps on `device` (s._lu_route and s._multi_route read
+    "host_exact"). The JAX package's host refinement steps are the last 6
+    of the one-shot's 10 device steps (`_lu_one_shot`)."""
+    X, rmax, xmax = shot
+    if _refined(rmax, Bm, xmax):
+        return _writable(X)
+    s._lu_route = s._multi_route = "host_exact"
+    return _lu_sweeps(_host_lu(a, s, tol), s, Bm, device)
+
+
+def lusol_multi(a: Sprs, B, order: int = 1, tol: float = 1e-6, *,
+                sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
+    """Batched LU solve: B is [n, nrhs]; returns X [n, nrhs] (numpy) with
+    A X = B (lusol semantics).
+
+    At or above `config.mf_min_n` the multifrontal one-shot on `device`
+    (`_lu_one_shot`: the factorization, the tree solves of every column and
+    f64 refinement), held to its residual with the host engine's exact
+    factors as the escape (`_lu_mf_refine`). The JAX package's second
+    branch, `lu` followed by the fused tree solve, is this one-shot in the
+    port: `lu` takes the multifrontal route exactly when the one-shot
+    does. Otherwise `lu` on `device` (the level LU, or the host engine
+    when its static pivots are rejected) and two f64 sweeps over all
+    columns. `s._multi_route` reads "device_mf", "host_exact",
+    "device_level" or "host". No reference counterpart."""
+    from .factor import lu
+    from .symbolic import sqr
+
+    s = sym if sym is not None else sqr(a, order, False)
+    Bm = np.asarray(B, dtype=np.float64)
+    if config.backend != "host":
+        shot = _lu_one_shot(a, s, Bm, tol, device=device)
+        if shot is not None:
+            s._multi_route = "device_mf"
+            return _lu_mf_refine(a, s, tol, Bm, shot, device)
+    nm = lu(a, s, tol, device=device)
+    s._multi_route = s._lu_route
+    return _lu_sweeps(nm, s, Bm, device)
+
+
+def qrsol_multi(a: Sprs, B, order: int = 2, refine: int = 2, *,
+                sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
+    """Batched least-squares / minimum-norm solve: B is [m, nrhs]; returns
+    X [n, nrhs] (numpy) minimizing ||AX - B|| columnwise (minimum norm
+    when m < n), by CSNE on one Cholesky of the Gram matrix.
+
+    With at least 8 RHS and the serving path enabled
+    (`config.serve_mixed`), the batch runs through a `qrsol_serve` handle
+    cached on the analysis (per `refine`, rebuilt when A's values or the
+    device change) when the kernel takes its plans, and its answer is held
+    to the least-squares optimality oracle max|A'(B - AX)| <
+    1e-8·max(1, max|B|) on the host. Otherwise, or when the oracle fails,
+    the exact branch (`_csne`): the f64 Gram solves and `refine` f64 CSNE
+    steps on `device`. `s._multi_route` reads "serve", or the Gram
+    factor's route. `sym` reuses the A'A (or AA') analysis. No reference
+    counterpart (the reference's qrsol is single-RHS)."""
+    from .symbolic import schol
+
+    Bm = np.asarray(B, dtype=np.float64)
+    s, g = sym, None
+    if s is None:
+        g = _gram(a, device)
+        s = schol(g, order)
+    if Bm.ndim == 2 and Bm.shape[1] >= 8 and _serve_enabled(device):
+        dev = _card(device)
+        key = (_values_fp(a), str(dev))
+        handles = s.__dict__.setdefault("_serve_handles", {})
+        h = handles.get(("qr", refine))
+        if h is None or h._values_fp != key:
+            h = qrsol_serve(a, sym=s, refine=refine, device=dev)
+            h._values_fp = key
+            handles[("qr", refine)] = h
+        if h.available:
+            X = h(Bm).cpu().numpy()
+            opt = _host_spmm_t(a, Bm - _host_spmm(a, X))
+            if float(np.abs(opt).max()) < 1e-8 * max(1.0, float(np.abs(Bm).max())):
+                s._multi_route = "serve"
+                return X
+            # conditioning beyond f32 refinement: the exact branch
+    if g is None:
+        g = _gram(a, device)
+    X = _csne(a, g, s, torch.as_tensor(Bm, device=device), refine, device)
+    s._multi_route = s._chol_route
+    return X.cpu().numpy()
+
+
+def cholsol_ir(a: Sprs, b, order: int = 0, factor_dtype: str = "float32",
+               refine: int = 2, *, device="cuda"):
+    """Mixed-precision SPD solve: factor A with its values rounded to
+    `factor_dtype`, then recover f64 accuracy with `refine` f64
+    iterative-refinement steps against A; b overwritten with x.
+
+    The port factors in float64 on every route, so `factor_dtype` sets
+    what is rounded: A's values are rounded to it (torch's rounding) before
+    `schol`/`chol`, and the two sweeps of every solve (L then L', one RHS)
+    run in float32 on the f64 factor rounded to float32, for "float32"
+    and for "bfloat16" alike (the sweep kernel has float32 and float64
+    builds only), and in float64 for "float64". Each refinement step takes
+    the f64 residual b - Ax against A's full stored values on `device`.
+    The JAX package factors the rounded values too (its factor is f64 on
+    the CPU) and rounds each sweep's right-hand side to `factor_dtype`.
+    No reference counterpart."""
+    from .factor import chol
+    from .symbolic import schol
+
+    dev = torch.device(device)
+    n = a.n
+    rd = getattr(torch, factor_dtype)
+    sd = torch.float64 if rd == torch.float64 else torch.float32
     nz = a.nnz()
-    rows, cols = ix(a.i[:nz]), ix(col_ids(a.p, n))
-    ax = torch.as_tensor(np.asarray(a.x[:nz], np.float64), device=dev)
-    amul = _coo_amul(rows, cols, ax, m)  # A
-    atmul = _coo_amul(cols, rows, ax, n)  # A'
+    ax = torch.as_tensor(np.asarray(a.x[:nz], np.float64))
+    a_lo = a.copy()
+    a_lo.x = ax.to(rd).to(torch.float64).numpy()
+    s = schol(a_lo, order)
+    nm = chol(a_lo, s, device=dev)
+    lx = device_values(nm, "l", dev).to(sd)
+    p0, p2 = tri_plan(nm.l, 0), tri_plan(nm.l, 2)
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+    precond = _permuted(lambda z: sptrsv_multi(lx, sptrsv_multi(
+        lx, z.to(sd), p0, 0), p2, 2).to(torch.float64),
+        ix(s.pinv) if s.pinv is not None else None)
+    amul = _coo_amul(ix(a.i[:nz]), ix(col_ids(a.p, n)), ax.to(dev))
     b64 = torch.as_tensor(np.asarray(b, np.float64), device=dev)[:, None]
-    if m >= n:
-        x = spd_solve(atmul(b64))
-        for _ in range(max(0, refine)):
-            x = x + spd_solve(atmul(b64 - amul(x)))
-    else:  # minimum norm: x = A'(AA')⁻¹ b
-        x = atmul(spd_solve(b64))
-        for _ in range(max(0, refine)):
-            x = x + atmul(spd_solve(b64 - amul(x)))
-    return x[:, 0].cpu().numpy()
+    x = precond(b64)
+    for _ in range(max(0, refine)):
+        x = x + precond(b64 - amul(x))  # f64 residual
+    out = x[:, 0].cpu().numpy()
+    _writeback(b, out)
+    return out

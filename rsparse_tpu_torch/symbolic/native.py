@@ -1,11 +1,11 @@
 """ctypes binding to the native symbolic/numeric engine (C++ host code).
 
-The engine's one source is `rsparse_tpu/native/rsymbolic.cpp`, shared with
-the JAX package: it is read as a file and compiled with g++ into this
-package's build directory (`rsparse_tpu_torch/_build/`, gitignored), under a
-name keyed on a hash of the source, so an edit rebuilds it and nothing is
-written next to the JAX package's own library. The build happens at first
-use, never at import.
+The engine's source is the port's own copy, `rsparse_tpu_torch/native/
+rsymbolic.cpp` (byte for byte the JAX package's engine, so the two packages
+compute the same analyses and host factors). It is compiled with g++ into
+this package's build directory (`rsparse_tpu_torch/_build/`, gitignored),
+under a name keyed on a hash of the source, so an edit rebuilds it. The
+build happens at first use, never at import.
 """
 
 from __future__ import annotations
@@ -19,8 +19,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.normpath(os.path.join(
-    _HERE, "..", "..", "rsparse_tpu", "native", "rsymbolic.cpp"))
+_SRC = os.path.normpath(os.path.join(_HERE, "..", "native", "rsymbolic.cpp"))
 BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 
 _i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")

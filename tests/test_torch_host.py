@@ -51,6 +51,51 @@ def test_port_imports_no_jax():
     subprocess.check_call([sys.executable, "-c", code], cwd=root)
 
 
+def _code_strings(path):
+    """The string literals of a module, its docstrings left out."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_engine_source_is_the_ports_own_copy():
+    """The C++ engine builds from the port's own copy of its source, byte
+    for byte the JAX package's engine it was taken from, and no module of
+    the port names a path under the JAX package's directory."""
+    from rsparse_tpu_torch.symbolic import native
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    pkg = os.path.join(root, "rsparse_tpu_torch")
+    src = os.path.realpath(native._SRC)
+    assert src.startswith(os.path.realpath(pkg) + os.sep)
+    with open(src, "rb") as f, open(os.path.join(
+            root, "rsparse_tpu", "native", "rsymbolic.cpp"), "rb") as g:
+        assert f.read() == g.read()
+    offenders = []
+    for d, _, files in os.walk(pkg):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(d, fn)
+            text = open(path).read()
+            if '"rsparse_tpu", "native"' in text or "'rsparse_tpu', 'native'" in text:
+                offenders.append(path)
+            if any("rsparse_tpu/" in s or s == "rsparse_tpu"
+                   for s in _code_strings(path)):
+                offenders.append(path)
+    assert not offenders, offenders
+
+
 @pytest.mark.parametrize("order", [-1, 0, 1, 2])
 def test_sqr_fields_equal(order):
     aj, at = _pair(_unsym(9, order + 3))

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain torch versions: the SpTRSV
 sweep (csrc/sptrsv.cu), the streaming SpMM (csrc/spmm.cu) and the DIA SpMV
 (csrc/spmv_dia.cu); and the solvers that run the sweep (the single-RHS
-solves, lusol, cholsol, cholsol_serve) on the card against their CPU runs.
+solves, lusol, cholsol, cholsol_serve, qrsol, and the batched and serving
+drivers cholsol_multi, lusol_multi, qrsol_multi, qrsol_serve and
+cholsol_ir) on the card against their CPU runs.
 
 This file imports neither jax nor the JAX package (only the numpy test
 matrix of bench.py), so it also runs on a machine with a card and no JAX:
@@ -524,3 +526,85 @@ def test_factor_values_contract_on_card(kind):
         got = np.asarray(rt.gaxpy(t, list(v), [0.0] * t.m, device="cuda"))
         want = np.asarray(rt.gaxpy(ref, list(v), [0.0] * t.m, device="cpu"))
         assert np.abs(got - want).max() <= 1e-10 * max(1.0, np.abs(want).max())
+
+
+def _multi_run(driver, dev, a, B):
+    """One call of a batched or serving driver on `dev`: (X as numpy, the
+    route, the sweep kernel's launches in the call)."""
+    before = sptrsv_multi.launches
+    if driver == "cholsol_multi":
+        s = rt.schol(a, 1)
+        X = rt.cholsol_multi(a, B, 1, sym=s, device=dev)
+    elif driver == "lusol_multi":
+        s = rt.sqr(a, 1, False)
+        X = rt.lusol_multi(a, B, 1, 1e-6, sym=s, device=dev)
+    elif driver == "qrsol_multi":
+        s = rt.schol(rt.multiply(rt.transpose(a, device="cpu"), a,
+                                 device="cpu"), 2)
+        X = rt.qrsol_multi(a, B, 2, sym=s, device=dev)
+    elif driver == "qrsol_serve":
+        h = rt.qrsol_serve(a, 2, device=dev)
+        X = h(B)
+        assert X.device.type == torch.device(dev).type
+        return X.cpu().numpy(), "serve", sptrsv_multi.launches - before
+    else:  # cholsol_ir: one RHS
+        b = B[:, 0].copy()
+        X = rt.cholsol_ir(a, b, 1, "float32", 3, device=dev)
+        assert np.array_equal(b, X)
+        return X, "ir", sptrsv_multi.launches - before
+    assert isinstance(X, np.ndarray)
+    return X, s._multi_route, sptrsv_multi.launches - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("driver", ["cholsol_multi", "lusol_multi",
+                                    "qrsol_multi", "qrsol_serve",
+                                    "cholsol_ir"])
+@pytest.mark.parametrize("mf_min_n", [100, 10**9])
+def test_multi_drivers_on_card(monkeypatch, driver, mf_min_n):
+    """The batched and serving drivers on the card agree with their CPU
+    runs (the plain sweeps), on the same route, with the serving path
+    forced on both; where the route sweeps, the card's run launches the
+    kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
+    monkeypatch.setattr(rt.config, "serve_mixed", "force")
+    if driver.startswith("qrsol"):
+        a = _qr_case(grid=12)[0]
+    elif driver == "lusol_multi":
+        a = chip_smoke.make_matrix(20, 0)
+    else:
+        n, p, i, x = laplacian_5pt(20)
+        a = sprs_from_fields(n, n, p, i, x)
+    B = np.random.default_rng(11).standard_normal((a.m, 8))
+    card, cpu = _multi_run(driver, "cuda", a, B), _multi_run(driver, "cpu",
+                                                             a, B)
+    assert card[1] == cpu[1] and cpu[2] == 0
+    if card[1] in ("serve", "device_level", "ir"):
+        assert card[2] >= 1
+    assert np.abs(card[0] - cpu[0]).max() <= 1e-9 * max(
+        1.0, np.abs(cpu[0]).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("branch", ["ls", "mn"])
+def test_qrsol_serve_available_on_card(branch):
+    """qrsol_serve's `available` is True exactly when the sweep kernel's
+    launch_config takes both Gram sweeps in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch.ops.sptrsv_cuda import launch_config
+
+    a, aw = _qr_case(grid=24)
+    h = rt.qrsol_serve(a if branch == "ls" else aw, 2, device="cuda")
+    fits = True
+    for plan, v32, _ in h.chain:
+        assert v32.dtype == torch.float32 and v32.device.type == "cuda"
+        try:
+            launch_config(plan, torch.float32, "cuda")
+        except ValueError:
+            fits = False
+    assert h.available == fits

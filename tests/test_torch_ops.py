@@ -273,4 +273,5 @@ def test_default_device_covers_the_slice():
                      "sprs_print", "spmm", "spmv", "spgemm_dia",
                      "lusol", "cholsol", "cholsol_serve", "chol", "lsolve",
                      "ltsolve", "usolve", "utsolve", "_tri_solve", "qr",
-                     "qrsol", "qrsol_ls"}
+                     "qrsol", "qrsol_ls", "cholsol_multi", "lusol_multi",
+                     "qrsol_multi", "qrsol_serve", "cholsol_ir"}
