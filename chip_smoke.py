@@ -91,7 +91,27 @@ at full size and checks them:
      matrix; a profile of each, and every new kernel sweep (the skeleton's
      f64 B = 128 pair, the Gram's f32 B = 128 pair of each branch,
      cholsol_ir's f32 B = 1 pair) replayed against its plain version with
-     its time, bound and a cuSPARSE triangular solve.
+     its time, bound and a cuSPARSE triangular solve;
+ 12. the batched-values drivers (main paths 13-15), each at full width
+     with its launch counts set to 0 just before it and read just after,
+     one cold and one warm call each (route device_mf, no instance solved
+     again one by one), with the upload time of its [K, nnz] values and
+     the peak device memory: `cholsol_vals` on phase 8's Laplacian and
+     analysis, K = 16 (diagonals scaled by 1 + 0.25k), every instance held
+     to the C++ engine's factorization and solve, walls beside those 16 C++
+     solves and 16 port cholsol calls, then one instance's diagonal negated
+     must raise NotPositiveDefiniteError naming exactly it; `lusol_vals` on
+     phase 7's matrix and analysis, K = 8 (7 diagonal scalings, one with its
+     off-diagonals redrawn), each instance held to its residual and to the
+     C++ engine's LU and solve, walls beside those and 8 port lusol calls;
+     `qrsol_vals` on phase 10's matrices, both branches, K = 4 (values
+     scaled by 1 + 0.1k), each instance held to the gate and to the port's
+     qrsol, instances 0 and 3 to the C++ engine's QR and apply (each takes
+     seconds); a profile of a warm call of each, and every instance-batched
+     sweep (one launch for all K: cholsol_vals' factor and solve sweeps,
+     qrsol_vals' R sweeps) replayed against its plain version with its
+     time, its bound (K instances' values and X, the shared pattern once)
+     and K cuSPARSE triangular solves.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -312,18 +332,19 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sweep_work(plan, B: int, item: int):
-    """(bytes, operations) one sweep of `plan` over X[n, B] must spend:
-    each off-diagonal entry's value and row index (in a dense block the
-    value only, its place implied), each column's diagonal value and
-    pointer, X read and written once; a multiply-add per entry and RHS
-    column, a division per column and RHS column."""
+def sweep_work(plan, B: int, item: int, K: int = 1):
+    """(bytes, operations) one sweep of `plan` over X[n, B] of K instances
+    must spend: each instance's off-diagonal and diagonal values and its X
+    read and written once; the pattern, which the instances share, once:
+    each off-diagonal entry's row index (none in a dense block, its place
+    implied) and each column's pointer; a multiply-add per entry, RHS
+    column and instance, a division per column, RHS column and
+    instance."""
     n, nent = plan.n, int(plan.ent_off[-1])
     d = plan.dense
     nblk = d.k * (d.k - 1) // 2 if d is not None else 0
-    nbytes = ((item + 4) * (nent - nblk) + item * nblk + (item + 4) * n
-              + 2 * n * B * item)
-    return nbytes, 2 * nent * B + n * B
+    nbytes = K * (item * (nent + n) + 2 * n * B * item) + 4 * (nent - nblk + n)
+    return nbytes, K * (2 * nent * B + n * B)
 
 
 def dname(dtype) -> str:
@@ -1118,14 +1139,15 @@ def phase_cholsol(seed: int, device: str = "cuda"):
 
 def record_sweeps(call) -> dict:
     """Run call() with every SpTRSV kernel sweep recorded: {(plan, kind,
-    B): (values, X, plan, kind)}, the first launch of each, inputs cloned."""
+    instances, B): (values, X, plan, kind)}, the first launch of each,
+    inputs cloned (values [L] with X [n, B], or [K, L] with X [K, n, B])."""
     from rsparse_tpu_torch import solve
     from rsparse_tpu_torch.ops import sptrsv_cuda
 
     real, seen = sptrsv_cuda.sptrsv_multi, {}
 
     def record(vals, X, plan, kind, **kw):
-        key = (id(plan), kind, X.shape[1])
+        key = (id(plan), kind, tuple(X.shape[:-2]), X.shape[-1])
         if key not in seen:
             seen[key] = (vals.clone(), X.clone(), plan, kind)
         return real(vals, X, plan, kind, **kw)
@@ -1158,7 +1180,10 @@ def replay_sweeps(label: str, seen: dict, what) -> tuple:
     its time beside its bound (bytes and operations), the plain version's
     time and a cuSPARSE triangular solve's (`torch.triangular_solve` on
     the same triangle in CSR). what(B) names a sweep in the printed line.
-    Returns (a dict of numbers per sweep, the largest difference)."""
+    A sweep of K instances (one launch) is bound by K instances' values
+    and X and the shared pattern once (`sweep_work`), and its cuSPARSE
+    yardstick is K solves, each on its instance's triangle. Returns (a
+    dict of numbers per sweep, the largest difference)."""
     import torch
 
     from rsparse_tpu_torch.ops.sptrsv_cuda import (launch_config, sptrsv_multi,
@@ -1166,36 +1191,39 @@ def replay_sweeps(label: str, seen: dict, what) -> tuple:
 
     out, max_abs = [], 0.0
     for vals, X, plan, kind in seen.values():
-        B, dt = X.shape[1], dname(vals.dtype)
+        B, dt = X.shape[-1], dname(vals.dtype)
+        K = X.shape[0] if X.dim() == 3 else 1
         print_schedule(plan, kind, launch_config(plan, vals.dtype, X.device))
         got = sptrsv_multi(vals, X, plan, kind)
         ref = sptrsv_plain_multi(vals, X, plan, kind)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         check(bool(torch.isfinite(got).all()) and rel <= TOL[dt],
-              f"{label} {what(B)} sweep kind={kind} B={B}: the kernel "
-              f"disagrees with the plain version: {rel:.3e}")
+              f"{label} {what(B)} sweep kind={kind} K={K} B={B}: the "
+              f"kernel disagrees with the plain version: {rel:.3e}")
         max_abs = max(max_abs, err)
         ms = cuda_ms(lambda: sptrsv_multi(vals, X, plan, kind),
                      5 if B > 1 else 10)
         plain = cuda_ms(lambda: sptrsv_plain_multi(vals, X, plan, kind), 1)
-        nbytes, flops = sweep_work(plan, B, vals.element_size())
+        nbytes, flops = sweep_work(plan, B, vals.element_size(), K)
         b_ms, b_by = bound_ms(nbytes, flops, dt)
-        T = plan_csr(vals, plan)
-        lib_fn = lambda: torch.triangular_solve(
-            X, T, upper=kind in (1, 3), transpose=kind in (2, 3)).solution
+        Xs, Vs = (list(X), list(vals)) if X.dim() == 3 else ([X], [vals])
+        Ts = [plan_csr(v, plan) for v in Vs]
+        lib_fn = lambda: torch.stack([torch.triangular_solve(
+            x, T, upper=kind in (1, 3), transpose=kind in (2, 3)).solution
+            for x, T in zip(Xs, Ts)]).reshape(got.shape)
         try:
             _, lib_rel = rel_err(lib_fn(), got)
             lib = cuda_ms(lib_fn, 3 if B > 1 else 5)
             lib_txt = f"library_ms={lib:.4f} library_rel_diff={lib_rel:.3e}"
         except (RuntimeError, NotImplementedError, TypeError) as e:
             lib, lib_txt = None, f"library: none ({type(e).__name__})"
-        print(f"{label}: {what(B)} sweep kind={kind} {dt} B={B} n={plan.n} "
+        print(f"{label}: {what(B)} sweep kind={kind} {dt} K={K} B={B} n={plan.n} "
               f"offdiag={int(plan.ent_off[-1])}: max_abs_err={err:.3e} "
               f"rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by}; {nbytes} bytes, {flops} "
               f"operations) bound_share={b_ms / ms:.5f} {lib_txt}", flush=True)
-        out.append({"path": label, "kind": kind, "n": plan.n, "B": B,
+        out.append({"path": label, "kind": kind, "n": plan.n, "K": K, "B": B,
                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": lib})
     return out, max_abs
@@ -1575,7 +1603,7 @@ def walls_txt(walls) -> str:
 def replay_new(label: str, seen: dict, keep) -> tuple:
     """Replay (`replay_sweeps`) the recorded kernel sweeps (`record_sweeps`)
     that keep(values dtype, B) selects; at least one must be."""
-    seen = {k: v for k, v in seen.items() if keep(v[0].dtype, v[1].shape[1])}
+    seen = {k: v for k, v in seen.items() if keep(v[0].dtype, v[1].shape[-1])}
     check(len(seen) >= 1, f"{label}: no kernel sweep recorded")
     return replay_sweeps(label, seen, lambda B: f"B={B}")
 
@@ -1885,6 +1913,298 @@ def phase_multi(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
     return by_path, sweeps, max_abs
 
 
+VALS_K = {"chol": 16, "lu": 8, "qr": 4}  # phase 12's instances per driver
+
+
+def upload_s(AxK: np.ndarray, device: str) -> float:
+    """Seconds to move a [K, nnz] value batch to the card, synchronized
+    (the upload each batched-values call makes of its instances)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.as_tensor(AxK, device=device)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def vals_calls(call, s):
+    """One cold (the first of its shapes in this run) and one warm call of
+    a batched-values driver on analysis s: (answers, walls, routes, peak
+    device bytes of the two calls)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+
+    def run():
+        X = call()
+        routes.append(s._vals_route)
+        return X
+
+    xs, walls = timed_calls(run, 2)
+    return xs, walls, routes, torch.cuda.max_memory_allocated()
+
+
+def inst_rel(X, Xh, ks) -> list:
+    """Per instance k of ks: max|X[k] - Xh[k]| / max(1, max|Xh[k]|)."""
+    return [float(np.abs(X[k] - Xh[k]).max() / max(1.0, np.abs(Xh[k]).max()))
+            for k in ks]
+
+
+def errs_txt(errs) -> str:
+    return ",".join(f"{e:.2e}" for e in errs)
+
+
+def check_vals(label: str, xs, routes, K: int, n: int, launches: int,
+               most: int) -> None:
+    """The checks every phase 12 driver shares: finite [K, n] answers, the
+    device route with no instance re-solved, and at most `most` kernel
+    launches over its two calls (one launch per sweep for all K)."""
+    for X in xs:
+        check(X.shape == (K, n) and bool(np.isfinite(X).all()),
+              f"{label}: bad answer")
+    check(set(routes) == {("device_mf", 0)}, f"{label}: routes {routes}, "
+          "not all the device multifrontal route with no re-solve")
+    check(launches <= most, f"{label}: {launches} kernel launches in 2 "
+          f"calls (at most {most}: one per sweep for all {K} instances)")
+
+
+def vals_cholsol(lap, lap_sym, seed: int, device: str):
+    """cholsol_vals on the CHOL_GRID Laplacian with phase 8's analysis:
+    K = 16 instances, diagonals scaled by 1 + 0.25k (the JAX bench's
+    family, bench.py:336-340), B[K, n] from the seed. One cold and one warm
+    call (route device_mf, no instance re-solved), every instance held to
+    the C++ engine's factorization and solve (1e-9 relative), walls beside
+    those K C++ solves and K port cholsol calls; then one instance's
+    diagonal negated must raise NotPositiveDefiniteError naming exactly it;
+    the instance-batched sweeps replayed. Returns (launches, sweep
+    numbers, the largest kernel difference)."""
+    from rsparse_tpu_torch import (NotPositiveDefiniteError, Sprs, cholsol,
+                                   cholsol_vals)
+    from rsparse_tpu_torch.ops.plan import col_ids
+
+    K, n, nz = VALS_K["chol"], lap.n, lap.nnz()
+    diag = lap.i[:nz] == col_ids(lap.p, n)
+    AxK = np.tile(lap.x[:nz], (K, 1))
+    AxK[:, diag] *= (1.0 + 0.25 * np.arange(K))[:, None]
+    B = np.random.default_rng(seed + 15).standard_normal((K, n))
+    inst = lambda k: Sprs(nz, n, n, lap.p, lap.i[:nz], AxK[k])
+    call = lambda: cholsol_vals(lap, AxK, B, 1, sym=lap_sym, device=device)
+    up = upload_s(AxK, device)
+    reset_counts()
+    xs, walls, routes, peak = vals_calls(call, lap_sym)
+    launches = read_counts()["sptrsv_sweep"]
+    pinv = np.asarray(lap_sym.pinv, np.int64)
+    t0 = time.perf_counter()
+    Xh = np.stack([chol_host_solves(n, chol_host_factor(inst(k), lap_sym),
+                                    pinv, B[k][:, None])[:, 0]
+                   for k in range(K)])
+    t_host = time.perf_counter() - t0
+    _, loop = timed_calls(lambda: [cholsol(inst(k), B[k].copy(), 1,
+                                           sym=lap_sym, device=device)
+                                   for k in range(K)], 1)
+    errs = inst_rel(xs[-1], Xh, range(K))
+    dev = max(max(inst_rel(X, Xh, range(K))) for X in xs)
+    print(f"cholsol_vals: n={n} K={K} routes={routes} wall_s="
+          f"{walls_txt(walls)} host_engine_{K}_chol_plus_solve_s="
+          f"{t_host:.4f} port_{K}_cholsol_loop_s={loop[0]:.4f} upload_s="
+          f"{up:.4f} ({AxK.nbytes} bytes) peak_mem_bytes={peak} "
+          f"host_rel_diff_per_instance={errs_txt(errs)} "
+          f"sweep_launches={launches}", flush=True)
+    # a call: the factor's W sweep, then two per solve (at most 5 solves)
+    check_vals("cholsol_vals", xs, routes, K, n, launches, 2 * 11)
+    check(launches >= 2 * 2, f"cholsol_vals: only {launches} kernel "
+          "launches in 2 calls")
+    check(dev <= 1e-9, f"cholsol_vals differs from the C++ engine by "
+          f"{dev:.3e}")
+    kb = K // 2 + 1
+    bad = AxK.copy()
+    bad[kb, diag] *= -1.0
+    try:
+        cholsol_vals(lap, bad, B, 1, sym=lap_sym, device=device)
+    except NotPositiveDefiniteError as e:
+        check(f"instances [{kb}] are not" in str(e), f"cholsol_vals: the "
+              f"error names other instances: {e}")
+        print(f"cholsol_vals: NotPositiveDefiniteError raised naming "
+              f"instance {kb} ({lap_sym._vals_route})", flush=True)
+    else:
+        raise SmokeError("cholsol_vals: no NotPositiveDefiniteError on an "
+                         "indefinite instance")
+    print("cholsol_vals profile (1 warm call): " + device_profile(call, 1),
+          flush=True)
+    sweeps, err = replay_sweeps(
+        "cholsol_vals", {k: v for k, v in record_sweeps(call).items()
+                         if v[1].dim() == 3},
+        lambda B: "L_NN " + ("factor" if B > 1 else "solve"))
+    check(len(sweeps) >= 1, "cholsol_vals: no instance-batched sweep")
+    return launches, sweeps, err
+
+
+def vals_lusol(a, s, seed: int, device: str):
+    """lusol_vals on phase 7's matrix and analysis: K = 8 instances, 0-6
+    with diagonals scaled by 1 + 0.2k, 7 with its off-diagonals redrawn
+    from the seed (other pivots), B[K, n]. One cold and one warm call
+    (route device_mf, no instance re-solved), every instance held to its
+    residual and to the C++ engine's LU and solve (1e-8 relative), walls
+    beside those K C++ solves and K port lusol calls. The dense skeleton
+    runs no sweep. Returns the launches."""
+    from rsparse_tpu_torch import Sprs, lusol, lusol_vals, sqr
+    from rsparse_tpu_torch.ops.plan import col_ids
+    from rsparse_tpu_torch.symbolic import native
+
+    K, n, nz = VALS_K["lu"], a.n, a.nnz()
+    diag = a.i[:nz] == col_ids(a.p, n)
+    AxK = np.tile(a.x[:nz], (K, 1))
+    AxK[:-1, diag] *= (1.0 + 0.2 * np.arange(K - 1))[:, None]
+    rng = np.random.default_rng(seed + 16)
+    AxK[-1, ~diag] = -(1.0 + 0.3 * rng.standard_normal(int((~diag).sum())))
+    B = rng.standard_normal((K, n))
+    inst = lambda k: Sprs(nz, n, n, a.p, a.i[:nz], AxK[k])
+    call = lambda: lusol_vals(a, AxK, B, 1, 1e-6, sym=s, device=device)
+    up = upload_s(AxK, device)
+    reset_counts()
+    xs, walls, routes, peak = vals_calls(call, s)
+    launches = read_counts()["sptrsv_sweep"]
+    s0 = sqr(a, 1, False)
+    q = np.asarray(s0.q, np.int64)
+    t0 = time.perf_counter()
+    Xh = []
+    for k in range(K):
+        f = native.lu_numeric(n, a.p, a.i[:nz], AxK[k], s0.q, 1e-6, s0.lnz,
+                              s0.unz)
+        Xh.append(host_solves(inst(k), B[k][:, None], (*f, q))[:, 0])
+    t_host = time.perf_counter() - t0
+    _, loop = timed_calls(lambda: [lusol(inst(k), B[k].copy(), 1, 1e-6,
+                                         sym=s, device=device)
+                                   for k in range(K)], 1)
+    errs = inst_rel(xs[-1], Xh, range(K))
+    dev = max(max(inst_rel(X, Xh, range(K))) for X in xs)
+    res = [float(np.abs(host_residual(inst(k), X[k]) - B[k]).max()
+                 / max(1.0, float(np.abs(B[k]).max())))
+           for X in xs for k in range(K)]
+    print(f"lusol_vals: n={n} K={K} routes={routes} wall_s="
+          f"{walls_txt(walls)} host_engine_{K}_lu_plus_solve_s={t_host:.4f} "
+          f"port_{K}_lusol_loop_s={loop[0]:.4f} upload_s={up:.4f} "
+          f"({AxK.nbytes} bytes) peak_mem_bytes={peak} "
+          f"host_rel_diff_per_instance={errs_txt(errs)} residual_max="
+          f"{max(res):.3e} sweep_launches={launches}", flush=True)
+    check_vals("lusol_vals", xs, routes, K, n, launches, 0)
+    check(max(res) <= 1e-10, f"lusol_vals: residual {max(res):.3e} over "
+          "1e-10 max(1, max|b|)")
+    check(dev <= 1e-8, f"lusol_vals differs from the C++ engine by "
+          f"{dev:.3e}")
+    print("lusol_vals profile (1 warm call): " + device_profile(call, 1),
+          flush=True)
+    return launches
+
+
+def vals_qrsol(qr: dict, seed: int, device: str):
+    """qrsol_vals on phase 10's matrices and analyses, both branches, K = 4
+    instances with values scaled by 1 + 0.1k, B[K, m]. Per branch one cold
+    and one warm call (route device_mf, no instance re-solved), every
+    instance held to the gate (the least-squares gradient, or the
+    residual, as phase 10) and to the port's qrsol (1e-9 relative),
+    instances 0 and K-1 to the C++ engine's QR and apply (1e-9; each QR
+    takes seconds, so only those two; the QR of A_k serves both branches,
+    the minimum norm factoring (A_k')' = A_k); the R sweeps replayed.
+    Returns (launches, sweep numbers, the largest kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, qrsol, qrsol_vals
+    from rsparse_tpu_torch.solve import _qr_host
+
+    K = VALS_K["qr"]
+    f = 1.0 + 0.1 * np.arange(K)
+    a, sref = qr["a"], qr["ls_ref"]
+    host, host_s = {}, {}
+    for k in (0, K - 1):
+        t0 = time.perf_counter()
+        host[k] = _qr_host(Sprs(a.nnz(), a.m, a.n, a.p, a.i[: a.nnz()],
+                                a.x[: a.nnz()] * f[k]), sref, sref.q)
+        host_s[k] = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 17)
+    launches, sweeps, max_abs = 0, [], 0.0
+    for label in ("ls", "mn"):
+        aa, s = (a if label == "ls" else qr["aw"]), qr[label]
+        m, n, nz = aa.m, aa.n, aa.nnz()
+        AxK = aa.x[:nz][None, :] * f[:, None]
+        B = rng.standard_normal((K, m))
+        inst = lambda k: Sprs(nz, m, n, aa.p, aa.i[:nz], AxK[k])
+        call = lambda: qrsol_vals(aa, AxK, B, 2, sym=s, device=device)
+        up = upload_s(AxK, device)
+        reset_counts()
+        xs, walls, routes, peak = vals_calls(call, s)
+        n_l = read_counts()["sptrsv_sweep"]
+        launches += n_l
+        xq, loop = timed_calls(lambda: [qrsol(inst(k), B[k].copy(), 2, sym=s,
+                                              device=device)
+                                        for k in range(K)], 1)
+        qdev = max(max(inst_rel(X, xq[0], range(K))) for X in xs)
+        gates = []
+        for k in range(K):
+            amul, atmul = coo_mul(inst(k), device)
+            bd = torch.as_tensor(B[k], device=device)
+            r = bd - amul(torch.as_tensor(xs[-1][k], device=device))
+            if label == "ls":
+                g, gs = float(atmul(r).abs().max()), float(atmul(bd).abs().max())
+                gates.append(g / (1e-8 * max(1.0, gs)))
+            else:
+                gates.append(float(r.abs().max())
+                             / (1e-10 * max(1.0, float(np.abs(B[k]).max()))))
+        hdev, happly = [], []
+        for k in (0, K - 1):
+            t0 = time.perf_counter()
+            xh = host_qr_apply(label, *host[k], sref, B[k][:, None], m, n)[:, 0]
+            happly.append(time.perf_counter() - t0)
+            hdev.append(max(float(np.abs(X[k] - xh).max()
+                                  / max(1.0, np.abs(xh).max())) for X in xs))
+        print(f"qrsol_vals {label}: m={m} n={n} K={K} routes={routes} wall_s="
+              f"{walls_txt(walls)} port_{K}_qrsol_loop_s={loop[0]:.4f} "
+              f"host_engine_qr_s(instances 0,{K - 1})="
+              f"{host_s[0]:.4f},{host_s[K - 1]:.4f} host_engine_apply_s="
+              f"{walls_txt(happly)} upload_s={up:.4f} ({AxK.nbytes} bytes) "
+              f"peak_mem_bytes={peak} gate_share_per_instance="
+              f"{errs_txt(gates)} qrsol_rel_diff={qdev:.3e} "
+              f"host_rel_diff(instances 0,{K - 1})={errs_txt(hdev)} "
+              f"sweep_launches={n_l}", flush=True)
+        check_vals(f"qrsol_vals {label}", xs, routes, K, n, n_l, 2)
+        check(n_l == 2, f"qrsol_vals {label}: {n_l} kernel launches in 2 "
+              "calls, not one R sweep each")
+        check(max(gates) <= 1.0, f"qrsol_vals {label}: an instance misses "
+              f"the gate ({max(gates):.3e} of it)")
+        check(qdev <= 1e-9, f"qrsol_vals {label} differs from qrsol by "
+              f"{qdev:.3e}")
+        check(max(hdev) <= 1e-9, f"qrsol_vals {label} differs from the C++ "
+              f"engine by {max(hdev):.3e}")
+        if label == "ls":
+            print("qrsol_vals ls profile (1 warm call): "
+                  + device_profile(call, 1), flush=True)
+        out, err = replay_sweeps(f"qrsol_vals {label}", record_sweeps(call),
+                                 lambda B: "R")
+        sweeps, max_abs = sweeps + out, max(max_abs, err)
+    return launches, sweeps, max_abs
+
+
+def phase_vals(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
+               device: str = "cuda"):
+    """Phase 12: the batched-values drivers at full width, each driven
+    with the launch counts set to 0 just before it and read just after.
+    Returns (launches by path, the instance-batched sweeps' numbers, the
+    largest kernel difference)."""
+    t0 = time.perf_counter()
+    by_path, sweeps, max_abs = {}, [], 0.0
+    by_path["cholsol_vals"], out, err = vals_cholsol(lap, lap_sym, seed,
+                                                     device)
+    sweeps, max_abs = sweeps + out, max(max_abs, err)
+    by_path["lusol_vals"] = vals_lusol(a, lu_sym, seed, device)
+    by_path["qrsol_vals"], out, err = vals_qrsol(qr, seed, device)
+    sweeps, max_abs = sweeps + out, max(max_abs, err)
+    print(f"vals: phase_s={time.perf_counter() - t0:.1f} sweep_launches="
+          f"{by_path}", flush=True)
+    return by_path, sweeps, max_abs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1934,6 +2254,8 @@ def main(argv=None) -> int:
         qr_launches, r_sweeps, r_err, qr = phase_qrsol(args.seed)
         multi_paths, multi_sweeps, multi_err = phase_multi(
             a, lu_sym, lap, lap_sym, qr, args.seed)
+        vals_paths, vals_sweeps, vals_err = phase_vals(
+            a, lu_sym, lap, lap_sym, qr, args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1944,16 +2266,18 @@ def main(argv=None) -> int:
         library_ms=t["library_ms"])
     by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
                "cholsol": cholsol_launches, "lusol": lusol_launches,
-               "qrsol": qr_launches, **multi_paths}
+               "qrsol": qr_launches, **multi_paths, **vals_paths}
     print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
           f"sweep: {kind2}", flush=True)
     sweep = entry("sptrsv_sweep", "sptrsv.cu",
                   "rsparse_tpu/ops/sptrsv_pallas.py:191",
                   sum(by_path.values()),
-                  max(max_abs, kind2_err, r_err, multi_err), main_ms)
+                  max(max_abs, kind2_err, r_err, multi_err, vals_err),
+                  main_ms)
     sweep["launches_by_path"] = by_path
     sweep["qr_r_sweeps"] = r_sweeps
     sweep["multi_sweeps"] = multi_sweeps
+    sweep["vals_sweeps"] = vals_sweeps
     print(json.dumps({"kernels": [
         sweep,
         entry("spmm_stream", "spmm.cu", "rsparse_tpu/ops/spmm_pallas.py:105",

@@ -5,8 +5,8 @@ NVIDIA H100 (sm_90a), checked against the JAX package it is ported from.
 It imports torch and numpy, never jax or rsparse_tpu.
 
 Ported so far (the `lusol_serve` slice, the L2 operator slice, the
-direct solvers `lusol`/`cholsol`/`qrsol`, and the batched and serving
-drivers):
+direct solvers `lusol`/`cholsol`/`qrsol`, the batched and serving
+drivers, and the batched-values drivers):
   - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), and
     `convert` to build them from plain numpy fields.
   - L2' ops: `add`, `multiply`, `transpose`, `gaxpy`, `norm`, `scpmat`,
@@ -39,7 +39,10 @@ drivers):
     (float32 sweeps + float64 refinement on device); the batched drivers
     `cholsol_multi`, `lusol_multi` and `qrsol_multi` (numpy [n, nrhs] out,
     the serving branch behind `config.serve_mixed`) and the
-    mixed-precision `cholsol_ir`.
+    mixed-precision `cholsol_ir`; the batched-values drivers
+    `cholsol_vals`, `lusol_vals` and `qrsol_vals` (K systems of one
+    pattern: a leading instance dimension through the multifrontal
+    factorizations, their solves and the SpTRSV sweep).
 
 The device-facing entry points take an explicit `device` argument, which
 defaults to the card ("cuda").
@@ -87,6 +90,9 @@ from .solve import (
     qrsol_multi,
     qrsol_serve,
     cholsol_ir,
+    cholsol_vals,
+    lusol_vals,
+    qrsol_vals,
 )
 from .symbolic import schol, sqr
 from .factor import chol, lu, qr
@@ -104,6 +110,7 @@ __all__ = [
     "lsolve_multi", "ltsolve_multi", "usolve_multi", "utsolve_multi",
     "lusol", "cholsol", "lusol_serve", "cholsol_serve", "qrsol", "qrsol_ls",
     "cholsol_multi", "lusol_multi", "qrsol_multi", "qrsol_serve", "cholsol_ir",
+    "cholsol_vals", "lusol_vals", "qrsol_vals",
     "schol", "sqr", "chol", "lu", "qr",
     "sprs_from_fields", "symb_from_fields",
 ]

@@ -27,7 +27,11 @@
 //
 // Design. RHS columns are independent: each CTA owns one of them (one
 // column per CTA measured faster than two, see PERF.md) and runs the whole
-// schedule; no grid-wide barrier.
+// schedule; no grid-wide barrier. Instances (K factors of one pattern, the
+// batched-values solvers) are independent too: blockIdx.y picks one, whose
+// value streams (ev, dv, dpan, ddiag) and X sit instance-major at fixed
+// strides; the index streams are shared. One launch covers all K x B
+// columns.
 //   - Dense super-level: x_D in shared memory, [kpad] (k padded to panels
 //     of 32). M is packed by the host panel by panel, each panel
 //     column-major over its rows at and below its diagonal block. Panel p
@@ -78,12 +82,15 @@ struct SweepArgs {
                       // (the block's outside entries: the value itself)
   const int* dcol;    // [k] dense block columns, in solve order
   const void* ddiag;  // [k] dense block diagonal values
-  const void* dpan;   // packed panels of the dense block (see header)
+  const void* dpan;   // [pan_total] packed panels of the dense block (see
+                      // header)
   void* x;            // X, solved in place: row-major [n][B] in the
                       // global variant, [B][n] (X^T) in the shared one
   int nlev, ncols, nents;
   int k, kpad, dense_first;
   int n, B;
+  int pan_total;  // values per instance of dpan
+  int K;          // instances: ev, dv, ddiag, dpan and x are [K][...]
 };
 
 namespace {
@@ -325,10 +332,17 @@ __device__ void sparse_levels(const SweepArgs& a, const XCol<T, kShared>& X) {
 }
 
 template <typename T, bool kScatter, bool kShared>
-__global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs a) {
+__global__ void __launch_bounds__(kThreads) sweep_kernel(SweepArgs in) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int c = blockIdx.x;  // the CTA's RHS column
-  T* xg = static_cast<T*>(a.x);
+  // the CTA's instance: its value streams and its X (64-bit offsets)
+  const size_t inst = blockIdx.y;
+  SweepArgs a = in;
+  a.ev = static_cast<const T*>(in.ev) + inst * in.nents;
+  a.dv = static_cast<const T*>(in.dv) + inst * in.ncols;
+  a.ddiag = static_cast<const T*>(in.ddiag) + inst * in.k;
+  a.dpan = static_cast<const T*>(in.dpan) + inst * in.pan_total;
+  T* xg = static_cast<T*>(in.x) + inst * in.n * in.B;
   T* dbuf = reinterpret_cast<T*>(smem);                // [2][32][32] if k
   T* xd = dbuf + (a.k > 0 ? 2 * kPanel * kPanel : 0);  // [kpad]
   T* xs = xd + a.kpad;                                 // [n] if kShared
@@ -368,7 +382,7 @@ cudaError_t launch_one(const SweepArgs& a, size_t smem, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fn<<<a.B, kThreads, smem, s>>>(a);
+  fn<<<dim3(a.B, a.K), kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -392,7 +406,8 @@ int launch(int device, int scatter, int shared, const SweepArgs* a,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). `scatter`: kinds 0/1;
-// `shared`: X's column in shared memory. One CTA per RHS column. Each
+// `shared`: X's column in shared memory. One CTA per RHS column and
+// instance. Each
 // returns cudaGetLastError() after the launch: 0 when the kernel was
 // accepted.
 extern "C" int sptrsv_sweep_f32(int device, int scatter, int shared,

@@ -14,8 +14,14 @@ etree level are independent: a level is one batched
 per pattern. Deep, narrow level structures end in a trailing dense block
 (`DenseTail`): one dense Cholesky instead of one step per level.
 
+Instances: the device half also factors K value arrays of one pattern at
+once (Cx [K, cnnz], the batched-values solvers): every gather and scatter
+works on the last dimension, the dense solves and Cholesky factorizations
+batch over the leading one, and each pivot minimum is taken per instance.
+
 Failure semantics: each level and the tail report their smallest pivot
-d (0 where `cholesky_ex` reports failure) as a device scalar; the caller
+d (0 where `cholesky_ex` reports failure) as a device scalar ([K] for K
+instances); the caller
 reduces them and reads the minimum back once, at the end, and raises
 NotPositiveDefiniteError when it is not positive (the reference errors at
 the first such k; the observable — the exception — is the same). A failed
@@ -250,14 +256,18 @@ def _tail_dev(tail: DenseTail, lsize: int, device) -> tuple:
 
 
 def _pivot_min(info: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
-    """The smallest of the pivots `diag`, 0 when `cholesky_ex` reported a
-    failed factorization."""
-    return torch.where((info > 0).any(), diag.new_zeros(()), diag.amin())
+    """The smallest of the pivots `diag` [..., p], 0 when `cholesky_ex`
+    reported a failed factorization; one value per leading index (an
+    instance), info's dimensions past them reduced too."""
+    failed = (info > 0).reshape(diag.shape[:-1] + (-1,)).any(-1)
+    return torch.where(failed, diag.new_zeros(()), diag.amin(-1))
 
 
 def _chol_tail(Lx: torch.Tensor, Cx: torch.Tensor, tail: DenseTail):
     """The dense trailing block (the JAX package's `_chol_tail_kernel`):
-    fills Lx in place. Returns (smallest pivot, (W, Ls_inv, Lnn_inv)).
+    fills Lx in place. Returns (smallest pivot, (W, Ls_inv, Lnn_inv)); with
+    K instances (Lx [K, lnz+1]) each of them [K, ...], W = L_NN^-1 C(N, T)
+    one sweep for all K.
 
     Solves against the tail use the precomputed triangular inverses (the
     whole application is a few matmuls); Lnn_inv is None when L_NN is too
@@ -268,32 +278,35 @@ def _chol_tail(Lx: torch.Tensor, Cx: torch.Tensor, tail: DenseTail):
      ltt_pos, ltt_r, ltt_c, nn_pos, nn_r, nn_c) = _tail_dev(
         tail, Lx.numel(), Lx.device)
     cut, d = tail.cut, tail.d
-    rhs = Lx.new_zeros((cut, d))
-    rhs[rhs_r, rhs_c] = Cx[rhs_src]
+    lead = Lx.shape[:-1]  # () or (K,)
+    rhs = Lx.new_zeros(lead + (cut, d))
+    rhs[..., rhs_r, rhs_c] = Cx[..., rhs_src]
     Lnn_inv = None
     if tail.tri is None:
-        Lnn = Lx.new_zeros((cut, cut))
-        Lnn[nn_r, nn_c] = Lx[nn_pos]
+        Lnn = Lx.new_zeros(lead + (cut, cut))
+        Lnn[..., nn_r, nn_c] = Lx[..., nn_pos]
         eye = torch.eye(cut, dtype=Lx.dtype, device=Lx.device)
         Lnn_inv = torch.linalg.solve_triangular(Lnn, eye, upper=False)
         W = Lnn_inv @ rhs
     else:
         W = sptrsv_multi(Lx, rhs, tail.tri, 0)
-    Att = Lx.new_zeros((d, d))
-    Att[att_r, att_c] = Cx[att_src]
-    S = Att + Att.T - torch.diag(torch.diagonal(Att)) - W.T @ W
+    Att = Lx.new_zeros(lead + (d, d))
+    Att[..., att_r, att_c] = Cx[..., att_src]
+    S = (Att + Att.mT - torch.diag_embed(torch.diagonal(Att, dim1=-2, dim2=-1))
+         - W.mT @ W)
     Ls, info = torch.linalg.cholesky_ex(S)
-    dmin = _pivot_min(info, torch.diagonal(Ls))
+    dmin = _pivot_min(info, torch.diagonal(Ls, dim1=-2, dim2=-1))
     Ls_inv = torch.linalg.solve_triangular(
         Ls, torch.eye(d, dtype=Lx.dtype, device=Lx.device), upper=False)
-    Lx[l21_pos] = W[l21_j, l21_t]
-    Lx[ltt_pos] = Ls[ltt_r, ltt_c]
+    Lx[..., l21_pos] = W[..., l21_j, l21_t]
+    Lx[..., ltt_pos] = Ls[..., ltt_r, ltt_c]
     return dmin, (W, Ls_inv, Lnn_inv)
 
 
 def _chol_step(Lx: torch.Tensor, Cx: torch.Tensor, tensors) -> torch.Tensor:
     """One level batch: batched dense triangular solve + scatter (Lx in
-    place). Returns its smallest d as a 0-dim tensor."""
+    place). Returns its smallest d as a 0-dim tensor ([K] for K instances,
+    Lx [K, lnz+1])."""
     Midx, bidx, akk, zpos, dpos = tensors
     M = _gather(Lx, Midx)
     # unit diagonal where the pattern has no entry (padding rows)
@@ -302,9 +315,9 @@ def _chol_step(Lx: torch.Tensor, Cx: torch.Tensor, tensors) -> torch.Tensor:
     z = torch.linalg.solve_triangular(M, _gather(Cx, bidx)[..., None],
                                       upper=False)[..., 0]
     d = _gather(Cx, akk) - (z * z).sum(-1)
-    Lx[zpos.reshape(-1)] = z.reshape(-1)
-    Lx[dpos] = torch.sqrt(d)
-    return d.amin()
+    Lx[..., zpos.reshape(-1)] = z.flatten(-2)
+    Lx[..., dpos] = torch.sqrt(d)
+    return d.amin(-1)
 
 
 def _levels_dev(plan: CholPlan, device) -> list:
@@ -315,8 +328,9 @@ def _levels_dev(plan: CholPlan, device) -> list:
 
 def _run_chol(plan: CholPlan, Cx: torch.Tensor):
     """Level phase + dense tail of a level plan on Cx's device. Returns
-    (Lx[lnz+1], per-step smallest pivots, tail values or None)."""
-    Lx = Cx.new_zeros(plan.lnz + 1)
+    (Lx[lnz+1], per-step smallest pivots, tail values or None); for K
+    instances (Cx [K, cnnz]) Lx [K, lnz+1] and pivots [K] each."""
+    Lx = Cx.new_zeros(Cx.shape[:-1] + (plan.lnz + 1,))
     dmins = [_chol_step(Lx, Cx, t) for t in _levels_dev(plan, Cx.device)]
     tail_vals = None
     if plan.tail is not None:

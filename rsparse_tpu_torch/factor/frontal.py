@@ -23,6 +23,12 @@ provides it for order >= 0):
   4. Skeleton factorization: the compacted system's L values scatter back
      into the global pattern (skeleton columns' L rows are all skeleton).
 
+Instances: the factorization and the solves also run K value arrays of
+one pattern at once (Cx [K, cnnz], X [K, n, B]; the batched-values
+solvers): gathers and scatters on the last dimension (rows: the one
+before B), the dense fronts [K, F, sp, sp] in the same batched calls, one
+smallest pivot per instance.
+
 Solves (`_solve_mf_dev`, on the factors' device) use precomputed front
 inverses Lss^{-1} (one batched matmul per bucket and direction instead of
 a triangular substitution) and the skeleton's dense-tail inverses; only an
@@ -339,25 +345,27 @@ def _front(Lx, Csx, Cx, b: FrontBucket, bdev):
      abs_src, abs_f, abs_r, abs_c, lss_pos, lss_r, lss_c, lss_f,
      lbs_pos, lbs_r, lbs_c, lbs_f, schur_src, schur_dst) = bdev
     F, sp, bp = b.srow.shape[0], b.sp, b.bp
-    Ass = Cx.new_zeros((F, sp, sp))
-    Ass[ass_f, ass_r, ass_c] = Cx[ass_src]
-    Ass = Ass + Ass.mT - torch.diag_embed(torch.diagonal(Ass, dim1=1, dim2=2))
-    # padded / missing-diagonal S slots: identity pivots
-    Ass.index_put_((pad_f, pad_r, pad_r), Cx.new_ones(()).expand(len(pad_f)),
-                   accumulate=True)
+    lead = Cx.shape[:-1]  # () or (K,)
+    Ass = Cx.new_zeros(lead + (F, sp, sp))
+    Ass[..., ass_f, ass_r, ass_c] = Cx[..., ass_src]
+    Ass = Ass + Ass.mT - torch.diag_embed(torch.diagonal(Ass, dim1=-2,
+                                                         dim2=-1))
+    # padded / missing-diagonal S slots (each once, zero so far): identity
+    # pivots
+    Ass[..., pad_f, pad_r, pad_r] = 1.0
     Lss, info = torch.linalg.cholesky_ex(Ass)
-    dmin = (_pivot_min(info, Lss[dg_f, dg_r, dg_r]) if len(dg_f)
-            else Cx.new_ones(()))
-    Abs = Cx.new_zeros((F, bp, sp))
-    Abs[abs_f, abs_r, abs_c] = Cx[abs_src]
+    dmin = (_pivot_min(info, Lss[..., dg_f, dg_r, dg_r]) if len(dg_f)
+            else Cx.new_ones(lead))
+    Abs = Cx.new_zeros(lead + (F, bp, sp))
+    Abs[..., abs_f, abs_r, abs_c] = Cx[..., abs_src]
     # L_BS = A_BS Lss^{-T}: solve X Lss^T = A_BS
     Lbs = torch.linalg.solve_triangular(Lss.mT, Abs, upper=True, left=False)
     Schur = Lbs @ Lbs.mT
-    Lx[lss_pos] = Lss[lss_f, lss_r, lss_c]
-    Lx[lbs_pos] = Lbs[lbs_f, lbs_r, lbs_c]
-    Csx.index_add_(0, schur_dst, Schur.reshape(-1)[schur_src], alpha=-1)
+    Lx[..., lss_pos] = Lss[..., lss_f, lss_r, lss_c]
+    Lx[..., lbs_pos] = Lbs[..., lbs_f, lbs_r, lbs_c]
+    Csx.index_add_(-1, schur_dst, Schur.flatten(-3)[..., schur_src], alpha=-1)
     # Lss^{-1}: every solve application becomes one batched matmul
-    eye = torch.eye(sp, dtype=Cx.dtype, device=Cx.device).expand(F, sp, sp)
+    eye = torch.eye(sp, dtype=Cx.dtype, device=Cx.device).expand(Lss.shape)
     Lss_inv = torch.linalg.solve_triangular(Lss, eye, upper=False)
     return dmin, (Lss_inv, Lbs)
 
@@ -366,19 +374,22 @@ def _chol_mf_values(Cx: torch.Tensor, plan: MFPlan):
     """Recursive core: factor the values Cx of the plan's system on Cx's
     device. Returns (Lx[lnz+1], smallest pivots, cache tree); the cache
     tree (fronts' (Lss_inv, Lbs), skeleton Lxs, tail values, sub-tree)
-    carries the dense factors the solves use."""
+    carries the dense factors the solves use. For K instances (Cx
+    [K, cnnz]) every array gains the leading K and each pivot is [K]. It
+    writes nothing on the plan but device index tensors."""
     dev = _factor_dev(plan, Cx.device)
-    Lx = Cx.new_zeros(plan.lnz + 1)
-    Csx = Cx.new_zeros(plan.skel_cnnz + 1)
+    lead = Cx.shape[:-1]
+    Lx = Cx.new_zeros(lead + (plan.lnz + 1,))
+    Csx = Cx.new_zeros(lead + (plan.skel_cnnz + 1,))
     a_src, a_dst = dev["asm"]
-    Csx.index_add_(0, a_dst, Cx[a_src])
+    Csx.index_add_(-1, a_dst, Cx[..., a_src])
     dmins, front_vals = [], []
     for b, bdev in zip(plan.buckets, dev["buckets"]):
         dmin, fv = _front(Lx, Csx, Cx, b, bdev)
         dmins.append(dmin)
         front_vals.append(fv)
     sp = plan.skel_plan
-    Cs = Csx[: plan.skel_cnnz]
+    Cs = Csx[..., : plan.skel_cnnz]
     tail_vals = sub_cache = None
     if isinstance(sp, MFPlan):  # recursive multifrontal layer
         Lxs, dsub, sub_cache = _chol_mf_values(Cs, sp)
@@ -387,7 +398,7 @@ def _chol_mf_values(Cx: torch.Tensor, plan: MFPlan):
         Lxs, dsub, tail_vals = _run_chol(sp, Cs)
     dmins += dsub
     l_src, l_dst = dev["map"]
-    Lx[l_dst] = Lxs[l_src]
+    Lx[..., l_dst] = Lxs[..., l_src]
     return Lx, dmins, (tuple(front_vals), Lxs, tail_vals, sub_cache)
 
 
@@ -420,17 +431,17 @@ def chol_mf(c: Sprs, s: Symb, plan: MFPlan, device):
 
 def _fwd_front(X, Ds, Lss_inv, Lbs, srow, brow):
     """Forward front phase (in place): z_S = Lss^{-1} b_S; accumulate
-    Lbs z into the skeleton delta Ds. X: [n+1, B] (garbage row n); Ds:
-    [ns+1, B] (garbage row ns)."""
-    zs = Lss_inv @ X[srow]  # [F, Sp, B]
-    X[srow] = zs  # padded slots write row n
-    Ds.index_add_(0, brow.reshape(-1), (Lbs @ zs).reshape(-1, X.shape[1]))
+    Lbs z into the skeleton delta Ds. X: [(K,) n+1, B] (garbage row n); Ds:
+    [(K,) ns+1, B] (garbage row ns)."""
+    zs = Lss_inv @ X[..., srow, :]  # [(K,) F, Sp, B]
+    X[..., srow, :] = zs  # padded slots write row n
+    Ds.index_add_(-2, brow.reshape(-1), (Lbs @ zs).flatten(-3, -2))
 
 
 def _bwd_front(X, Lss_inv, Lbs, srow, browg):
     """Backward front phase (in place): x_S = Lss^{-T} (b_S - Lbsᵀ x_B).
     `browg` holds global row indices of B slots (n = pad)."""
-    X[srow] = Lss_inv.mT @ (X[srow] - Lbs.mT @ X[browg])
+    X[..., srow, :] = Lss_inv.mT @ (X[..., srow, :] - Lbs.mT @ X[..., browg, :])
 
 
 def _skel_tri_plans(plan: MFPlan):
@@ -473,18 +484,21 @@ def _solve_dev(plan: MFPlan, device) -> dict:
 
 
 def _solve_mf_dev(plan: MFPlan, X: torch.Tensor, cache) -> torch.Tensor:
-    """Recursive device core: X [n, B] -> L'^{-1} L^{-1} X."""
+    """Recursive device core: X [n, B] -> L'^{-1} L^{-1} X; or X [K, n, B]
+    with a cache tree of K instances (`_chol_mf_values` of Cx [K, cnnz]),
+    every sweep one launch for all K."""
     from ..ops.sptrsv_cuda import sptrsv_multi
 
     fronts, Lxs, tail_vals, sub_cache = cache
     ns, n = len(plan.skel), plan.n
     sdev = _solve_dev(plan, X.device)
-    Xd = torch.cat([X, X.new_zeros((1, X.shape[1]))])
-    Ds = X.new_zeros((ns + 1, X.shape[1]))
+    lead, B = X.shape[:-2], X.shape[-1]
+    Xd = torch.cat([X, X.new_zeros(lead + (1, B))], dim=-2)
+    Ds = X.new_zeros(lead + (ns + 1, B))
     for (Lss_inv, Lbs), (srow, brow, _) in zip(fronts, sdev["buckets"]):
         _fwd_front(Xd, Ds, Lss_inv, Lbs, srow, brow)
     skel_idx = sdev["skel_idx"]
-    bs = Xd[skel_idx] - Ds[:ns]
+    bs = Xd[..., skel_idx, :] - Ds[..., :ns, :]
     if isinstance(plan.skel_plan, MFPlan):  # recursive layer
         ys = _solve_mf_dev(plan.skel_plan, bs, sub_cache)
     elif tail_vals is not None:
@@ -498,15 +512,15 @@ def _solve_mf_dev(plan: MFPlan, X: torch.Tensor, cache) -> torch.Tensor:
             nn_bwd = lambda v: sptrsv_multi(Lxs, v, p2, 2)
         else:
             nn_fwd = lambda v: Lnn_inv @ v
-            nn_bwd = lambda v: Lnn_inv.T @ v
-        y_n = nn_fwd(bs[:cut])
-        z_t = Ls_inv.T @ (Ls_inv @ (bs[cut:] - W.T @ y_n))
-        ys = torch.cat([nn_bwd(y_n - W @ z_t), z_t])
+            nn_bwd = lambda v: Lnn_inv.mT @ v
+        y_n = nn_fwd(bs[..., :cut, :])
+        z_t = Ls_inv.mT @ (Ls_inv @ (bs[..., cut:, :] - W.mT @ y_n))
+        ys = torch.cat([nn_bwd(y_n - W @ z_t), z_t], dim=-2)
     else:
         p0, p2, _ = _skel_tri_plans(plan)
         ys = sptrsv_multi(Lxs, sptrsv_multi(Lxs, bs, p0, 0), p2, 2)
-    Xd[skel_idx] = ys
+    Xd[..., skel_idx, :] = ys
     for (Lss_inv, Lbs), (srow, _, browg) in zip(reversed(fronts),
                                                 reversed(sdev["buckets"])):
         _bwd_front(Xd, Lss_inv, Lbs, srow, browg)
-    return Xd[:n]
+    return Xd[..., :n, :]

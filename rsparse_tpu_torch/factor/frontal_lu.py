@@ -40,6 +40,14 @@ blocks around it are batched triangular solves and matmuls, and the
 extend-add is `index_add_`. torch scatters have no drop mode, so every
 scatter map is range-checked when its device tensor is made.
 
+Instances: `_lu_mf_values` and `_solve_lu_mf_dev` also take K value
+arrays of one pattern at once (Ax [K, nnz], X [K, n, B]; the batched-values
+solver `lusol_vals`): the fronts of all K instances go through one pivoted
+LU ([K·F, Sp, Sp]), the dense skeleton's steps carry K matrices each, the
+margins, bad flags and pivot perms are per instance, and the host compose
+then gives each instance its own inner eliminations ([K, ns] leaves of the
+cache tree), which the solve gathers through per instance.
+
 Solves (`_solve_lu_mf_dev`, on the factors' device) walk the same tree
 with the cached factors: batched triangular solves with each bucket's
 Lss/Uss and matmuls with LB/UB, the inner skeleton by recursion, by two
@@ -545,7 +553,8 @@ def build_lu_mf_plan(a: Sprs, s: Symb, smax: int = 64,
 
 def _pivoted_lu(M: torch.Tensor, valid: torch.Tensor, tol: float):
     """Batched dense LU with threshold partial pivoting restricted to the
-    block rows. M: [F, Sp, Sp]; `valid` marks real pivot slots (padded
+    block rows. M: [F, Sp, Sp] (K instances' fronts as K·F); `valid` marks
+    real pivot slots (padded
     slots get identity pivots and are never swapped).
 
     Pivot rule per column c (the reference's shape, src/lib.rs:565-589):
@@ -587,41 +596,47 @@ def _pivoted_lu(M: torch.Tensor, valid: torch.Tensor, tol: float):
 
 def _pivoted_lu_single_blocked(M: torch.Tensor, theta: float, panel: int = 64):
     """Right-looking blocked LU with threshold partial pivoting for ONE
-    dense [ns, ns] matrix (the compacted skeleton): per pivot step only the
+    dense [ns, ns] matrix (the compacted skeleton), or for K of them
+    [K, ns, ns] at once, each pivoting on its own: per pivot step only the
     [R, panel] panel is updated, and the trailing update is one matmul per
-    panel. Returns (packed LU, perm, worst ratio as a 0-dim tensor)."""
-    M = M.clone()
-    ns = M.shape[0]
+    panel. Returns (packed LU, perm, worst ratio), the last two [K, ns] and
+    [K] for K matrices (a 0-dim tensor for one)."""
+    one = M.dim() == 2
+    M = M[None].clone() if one else M.clone()
+    K, ns = M.shape[0], M.shape[-1]
     dev = M.device
     ar = torch.arange(ns, device=dev)
-    perm = ar.clone()
-    worst = M.new_full((), float("inf"))
+    kk = torch.arange(K, device=dev)[:, None]
+    perm = ar.repeat(K, 1)
+    worst = M.new_full((K,), float("inf"))
     tiny = torch.finfo(M.dtype).tiny
     for b0 in range(0, ns, panel):
         e = min(b0 + panel, ns)
         for gc in range(b0, e):
-            absb = M[gc:, gc].abs()
-            colmax = absb.max()
-            pivrow = torch.where(absb[0] >= theta * colmax, ar[gc],
-                                 torch.argmax(absb) + gc)
-            # swap rows gc <-> pivrow of M (left L part, panel and trailing
-            # columns) and of perm
-            idx = torch.stack([ar[gc], pivrow])
-            M[idx] = M[idx.flip(0)]
-            perm[idx] = perm[idx.flip(0)]
-            piv = M[gc, gc]
+            absb = M[:, gc:, gc].abs()
+            colmax = absb.amax(-1)
+            pivrow = torch.where(absb[:, 0] >= theta * colmax, ar[gc],
+                                 torch.argmax(absb, -1) + gc)
+            # swap rows gc <-> pivrow of each M (left L part, panel and
+            # trailing columns) and of its perm
+            idx = torch.stack([ar[gc].expand(K), pivrow], -1)  # [K, 2]
+            M[kk, idx] = M[kk, idx.flip(-1)]
+            perm[kk, idx] = perm[kk, idx.flip(-1)]
+            piv = M[:, gc, gc]
             worst = torch.minimum(worst, piv.abs() / colmax.clamp(min=tiny))
             safe = torch.where(piv == 0, torch.ones_like(piv), piv)
-            l = M[gc + 1:, gc] / safe
-            M[gc + 1:, gc + 1:e] -= l[:, None] * M[gc, gc + 1:e][None, :]
-            M[gc + 1:, gc] = l
+            l = M[:, gc + 1:, gc] / safe[:, None]
+            M[:, gc + 1:, gc + 1:e] -= l[:, :, None] * M[:, gc, None, gc + 1:e]
+            M[:, gc + 1:, gc] = l
         if e < ns:
-            L11 = M[b0:e, b0:e].tril(-1) + torch.eye(e - b0, dtype=M.dtype,
-                                                      device=dev)
-            U12 = torch.linalg.solve_triangular(L11, M[b0:e, e:], upper=False,
-                                                unitriangular=True)
-            M[b0:e, e:] = U12
-            M[e:, e:] -= M[e:, b0:e] @ U12
+            L11 = M[:, b0:e, b0:e].tril(-1) + torch.eye(e - b0, dtype=M.dtype,
+                                                         device=dev)
+            U12 = torch.linalg.solve_triangular(L11, M[:, b0:e, e:],
+                                                upper=False, unitriangular=True)
+            M[:, b0:e, e:] = U12
+            M[:, e:, e:] -= M[:, e:, b0:e] @ U12
+    if one:
+        return M[0], perm[0], worst[0]
     return M, perm, worst
 
 
@@ -630,9 +645,10 @@ def _dense_skel(Cs: torch.Tensor, sr: torch.Tensor, sc: torch.Tensor, ns: int):
     `_dense_skel_kernel`): scatter-assemble the compact values
     into [ns, ns] and run the blocked full-partial-pivoting LU. Threshold
     1.0 = plain partial pivoting (a dense block gains no sparsity from
-    diagonal preference, so take the most stable pivot)."""
-    Sd = Cs.new_zeros((ns, ns))
-    Sd[sr, sc] = Cs
+    diagonal preference, so take the most stable pivot). Cs [K, cnnz]: K
+    instances, each pivoting on its own."""
+    Sd = Cs.new_zeros(Cs.shape[:-1] + (ns, ns))
+    Sd[..., sr, sc] = Cs
     return _pivoted_lu_single_blocked(Sd, 1.0)
 
 
@@ -640,15 +656,21 @@ def _lu_front(Lx, Ux, Csx, Ax, tol: float, bdev):
     """One bucket of fronts (the JAX package's `_lu_front_kernel`):
     factor, scatter into Lx/Ux, extend-add the
     Schur complements into the skeleton values Csx (all in place). Returns
-    (margin, bad, (Lss, Uss, LB, UB, perm))."""
+    (margin, bad, (Lss, Uss, LB, UB, perm)); for K instances (Ax [K, nnz])
+    margin and bad are [K] and the blocks and perm [K, F, ...]."""
     (valid, ass_pos, abr_pos, abc_pos,
      lss_pos, lss_f, lss_r, lss_c, uss_pos, uss_f, uss_r, uss_c,
      lb_pos, lb_f, lb_r, lb_c, ub_pos, ub_f, ub_r, ub_c,
      schur_src, schur_dst) = bdev
     # device pivot threshold: at least 0.1 (standard sparse threshold
     # pivoting) — bounds in-front element growth regardless of the user tol
-    LUp, perm, worst = _pivoted_lu(_gather(Ax, ass_pos), valid, max(tol, 0.1))
-    spn = LUp.shape[-1]
+    Ass = _gather(Ax, ass_pos)  # [(K,) F, Sp, Sp]: one pivoted LU of K·F
+    spn = Ass.shape[-1]
+    K = Ass.numel() // (valid.numel() * spn)
+    LUp, perm, worst = _pivoted_lu(Ass.reshape(-1, spn, spn),
+                                   valid.repeat(K, 1), max(tol, 0.1))
+    LUp, perm, worst = (LUp.reshape(Ass.shape), perm.reshape(Ass.shape[:-1]),
+                        worst.reshape(Ass.shape[:-2]))
     Lss = LUp.tril(-1) + torch.eye(spn, dtype=LUp.dtype, device=LUp.device)
     Uss = LUp.triu()
     # L_B = A(Br,S) Uss^{-1}  -> solve X Uss = Abr (column ops: perm-free)
@@ -656,20 +678,21 @@ def _lu_front(Lx, Ux, Csx, Ax, tol: float, bdev):
                                        left=False)
     # U_B = Lss^{-1} P_f A(S,Bc)
     Abc = _gather(Ax, abc_pos)
-    Abc = torch.gather(Abc, 1, perm[:, :, None].expand_as(Abc))
+    Abc = torch.gather(Abc, -2, perm[..., None].expand_as(Abc))
     UB = torch.linalg.solve_triangular(Lss, Abc, upper=False,
                                        unitriangular=True)
     Schur = LB @ UB
     # boundary rows also compete for the pivot in the reference's rule:
     # |L_B| = |x_row| / |piv|, so the tol ratio there is 1 / max(1, |L_B|)
-    lbmax = LB.abs().amax(dim=1)  # [F, Sp]
+    lbmax = LB.abs().amax(dim=-2)  # [(K,) F, Sp]
     worst = torch.minimum(worst, (1.0 / lbmax.clamp(min=1.0)).amin(dim=-1))
-    Lx[lss_pos] = Lss[lss_f, lss_r, lss_c]
-    Ux[uss_pos] = Uss[uss_f, uss_r, uss_c]
-    Lx[lb_pos] = LB[lb_f, lb_r, lb_c]
-    Ux[ub_pos] = UB[ub_f, ub_r, ub_c]
-    Csx.index_add_(0, schur_dst, Schur.reshape(-1)[schur_src], alpha=-1)
-    return worst.min() - tol, (worst == 0.0).any(), (Lss, Uss, LB, UB, perm)
+    Lx[..., lss_pos] = Lss[..., lss_f, lss_r, lss_c]
+    Ux[..., uss_pos] = Uss[..., uss_f, uss_r, uss_c]
+    Lx[..., lb_pos] = LB[..., lb_f, lb_r, lb_c]
+    Ux[..., ub_pos] = UB[..., ub_f, ub_r, ub_c]
+    Csx.index_add_(-1, schur_dst, Schur.flatten(-3)[..., schur_src], alpha=-1)
+    return (worst.amin(-1) - tol, (worst == 0.0).any(-1),
+            (Lss, Uss, LB, UB, perm))
 
 
 def _factor_dev(plan: LUMFPlan, device) -> dict:
@@ -716,15 +739,20 @@ def _lu_mf_values(Ax: torch.Tensor, plan: LUMFPlan, tol: float):
     on Ax's device. Returns (Lx, Ux, margins, bads, cache tree, perm_parts)
     where perm_parts is the traversal-ordered list of flattened pivot perms
     — the caller concatenates them so the host finalize pass needs ONE
-    readback."""
+    readback. For K instances (Ax [K, nnz]) every value array and perm part
+    gains the leading K and each margin and bad flag is [K]; the cache
+    tree's inner-elimination leaves stay placeholders until
+    `_attach_inners`. It writes nothing on the plan but device index
+    tensors."""
     from .lu_device import LUPlan, _run_levels
 
     dev = _factor_dev(plan, Ax.device)
-    Lx = Ax.new_zeros(plan.lnz + 1)
-    Ux = Ax.new_zeros(plan.unz + 1)
-    Csx = Ax.new_zeros(plan.skel_cnnz + 1)
+    lead = Ax.shape[:-1]
+    Lx = Ax.new_zeros(lead + (plan.lnz + 1,))
+    Ux = Ax.new_zeros(lead + (plan.unz + 1,))
+    Csx = Ax.new_zeros(lead + (plan.skel_cnnz + 1,))
     a_src, a_dst = dev["asm"]
-    Csx.index_add_(0, a_dst, Ax[a_src])
+    Csx.index_add_(-1, a_dst, Ax[..., a_src])
     margins, bads = [], []
     front_vals = []
     perm_parts = []
@@ -733,10 +761,10 @@ def _lu_mf_values(Ax: torch.Tensor, plan: LUMFPlan, tol: float):
         margins.append(mg)
         bads.append(bd)
         front_vals.append(fv)
-        perm_parts.append(fv[-1].reshape(-1))
+        perm_parts.append(fv[-1].flatten(-2))
 
     sp = plan.skel_plan
-    Cs = Csx[: plan.skel_cnnz]
+    Cs = Csx[..., : plan.skel_cnnz]
     if isinstance(sp, LUMFPlan):  # recursive layer (skeleton is unpermuted)
         Lxs, Uxs, m2, b2, sub_cache, sub_perms = _lu_mf_values(Cs, sp, tol)
         margins += m2
@@ -749,8 +777,8 @@ def _lu_mf_values(Ax: torch.Tensor, plan: LUMFPlan, tol: float):
         # whole remaining column is zero = numerically singular).
         LUd, permd, worst = _dense_skel(Cs, *dev["skel"], ns=sp.ns)
         bads.append(worst == 0.0)
-        margins.append(Ax.new_zeros(()))
-        Lxs = torch.cat([LUd.reshape(-1), Ax.new_ones(1)])
+        margins.append(Ax.new_zeros(lead))
+        Lxs = torch.cat([LUd.flatten(-2), Ax.new_ones(lead + (1,))], dim=-1)
         Uxs = Lxs
         sub_cache = permd
         perm_parts.append(permd)
@@ -761,8 +789,8 @@ def _lu_mf_values(Ax: torch.Tensor, plan: LUMFPlan, tol: float):
         margins += m2
         bads += b2
     l_src, l_dst, u_src, u_dst = dev["map"]
-    Lx[l_dst] = Lxs[l_src]
-    Ux[u_dst] = Uxs[u_src]
+    Lx[..., l_dst] = Lxs[..., l_src]
+    Ux[..., u_dst] = Uxs[..., u_src]
     # elim_inner placeholder (identity) — replaced by the host finalize pass
     cache = (tuple(front_vals), Lxs, Uxs, sub_cache,
              torch.arange(len(plan.skel), device=Ax.device))
@@ -809,8 +837,8 @@ def _compose_elim(plan: LUMFPlan, permh: np.ndarray, ofs: int,
 def _attach_inners(plan: LUMFPlan, cache, inners: list, idx: int = 0):
     """Rebuild the cache tree with the given inner-elimination leaves
     (post-order, matching `_compose_elim`). `inners` entries may carry a
-    leading batch axis (vmapped factorization) — the solve core gathers
-    through them per instance either way."""
+    leading instance axis ([K, ns], a factorization of K instances) — the
+    solve core gathers through them per instance either way."""
     fronts, Lxs, Uxs, sub_cache, _ = cache
     if isinstance(plan.skel_plan, LUMFPlan):
         sub_cache, idx = _attach_inners(plan.skel_plan, sub_cache, inners,
@@ -889,17 +917,17 @@ def _lu_fwd_front(X, Ds, Lss, LB, srow, br_skel):
     """L forward, front phase (in place). X is in full elimination order,
     so the S window [aa..r] is already pivot-permuted: solve with Lss
     directly and accumulate LB y into the skeleton delta Ds (pre-pivot
-    compact rows; garbage row ns)."""
-    ys = torch.linalg.solve_triangular(Lss, X[srow], upper=False,
+    compact rows; garbage row ns). X, Ds: [(K,) rows, B]."""
+    ys = torch.linalg.solve_triangular(Lss, X[..., srow, :], upper=False,
                                        unitriangular=True)
-    X[srow] = ys  # padded slots write row n (garbage)
-    Ds.index_add_(0, br_skel.reshape(-1), (LB @ ys).reshape(-1, X.shape[1]))
+    X[..., srow, :] = ys  # padded slots write row n (garbage)
+    Ds.index_add_(-2, br_skel.reshape(-1), (LB @ ys).flatten(-3, -2))
 
 
 def _lu_bwd_front(X, Uss, UB, srow, bc_glob):
     """U backward, front phase (in place): x_S = Uss^{-1} (y_S - UB x_Bc)."""
-    X[srow] = torch.linalg.solve_triangular(
-        Uss, X[srow] - UB @ X[bc_glob], upper=True)
+    X[..., srow, :] = torch.linalg.solve_triangular(
+        Uss, X[..., srow, :] - UB @ X[..., bc_glob, :], upper=True)
 
 
 def _lu_skel_tri_plans(plan: LUMFPlan):
@@ -937,33 +965,39 @@ def _solve_dev(plan: LUMFPlan, device) -> dict:
 
 def _solve_lu_mf_dev(plan: LUMFPlan, X: torch.Tensor, cache) -> torch.Tensor:
     """Recursive device core: X [n, B] (elimination order) ->
-    U^{-1} L^{-1} X."""
+    U^{-1} L^{-1} X; or X [K, n, B] with a cache tree of K instances (their
+    inner eliminations [K, ns]), every sweep one launch for all K."""
     from ..ops.sptrsv_cuda import sptrsv_multi
 
     fronts, Lxs, Uxs, sub_cache, elim_inner = cache
     ns, n = len(plan.skel), plan.n
     sdev = _solve_dev(plan, X.device)
-    Xd = torch.cat([X, X.new_zeros((1, X.shape[1]))])
-    Ds = X.new_zeros((ns + 1, X.shape[1]))
+    lead, B = X.shape[:-2], X.shape[-1]
+    Xd = torch.cat([X, X.new_zeros(lead + (1, B))], dim=-2)
+    Ds = X.new_zeros(lead + (ns + 1, B))
     for (Lss, _, LB, _, _), (srow, br_skel, _) in zip(fronts, sdev["buckets"]):
         _lu_fwd_front(Xd, Ds, Lss, LB, srow, br_skel)
     skel_idx = sdev["skel_idx"]
     # Ds is accumulated at PRE-PIVOT compact rows; the inner solve consumes
     # inner-elimination order, so convert with the composed inner perm
-    bs = Xd[skel_idx] - Ds[:ns][elim_inner]
+    # (one per instance: [K, ns])
+    Dp = Ds[..., :ns, :]
+    Dp = (Dp[..., elim_inner, :] if elim_inner.dim() == 1 else torch.gather(
+        Dp, -2, elim_inner[..., None].expand(Dp.shape)))
+    bs = Xd[..., skel_idx, :] - Dp
     sp = plan.skel_plan
     if isinstance(sp, LUMFPlan):  # recursive layer
         ys = _solve_lu_mf_dev(sp, bs, sub_cache)
     elif isinstance(sp, DenseSkelPlan):
-        LUd = Lxs[: ns * ns].reshape(ns, ns)
+        LUd = Lxs[..., : ns * ns].unflatten(-1, (ns, ns))
         ys = torch.linalg.solve_triangular(LUd.tril(-1), bs, upper=False,
                                            unitriangular=True)
         ys = torch.linalg.solve_triangular(LUd.triu(), ys, upper=True)
     else:
         p0, p1 = _lu_skel_tri_plans(plan)
         ys = sptrsv_multi(Uxs, sptrsv_multi(Lxs, bs, p0, 0), p1, 1)
-    Xd[skel_idx] = ys
+    Xd[..., skel_idx, :] = ys
     for (_, Uss, _, UB, _), (srow, _, bc_glob) in zip(
             reversed(fronts), reversed(sdev["buckets"])):
         _lu_bwd_front(Xd, Uss, UB, srow, bc_glob)
-    return Xd[:n]
+    return Xd[..., :n, :]

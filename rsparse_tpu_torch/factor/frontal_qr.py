@@ -29,6 +29,14 @@ and the irregular R and CB position maps); the front assembly, R and CB
 index streams expand on the device with `torch.searchsorted` and integer
 arithmetic at factor time.
 
+The factorization and the solves also take K value arrays of one pattern
+at once (Ax [K, nnz], the batched-values solver `qrsol_vals`): the fronts
+[K, F, rp, cp] go into the same batched `torch.linalg.qr`, gathers and
+scatters work on the last dimension (rows: the one before the columns of
+B), and the R sweep is one launch for all K. That form (`_qr_mf_values`)
+writes nothing on the plan but device index tensors; only `_qr_mf_factor`
+caches one instance's factors there.
+
 The port factors in float64 on every route, so the JAX package's float32
 machinery stays behind: the dense R⁻¹ cache (`_maybe_dense_rinv`), the
 compile-size chunking (`_qr_chunks`), the Pallas sweep switch
@@ -428,45 +436,54 @@ def _expand(cum: torch.Tensor, T: int):
 def _qr_front(Rx, cbx, Ax, dev, dims):
     """One bucket: assemble the fronts, factor them (reduced QR), scatter R
     rows into Rx and the contribution blocks into cbx (in place). Returns
-    the bucket's Q [F, rp, kq]."""
+    the bucket's Q [F, rp, kq] ([K, F, rp, kq] for K instances)."""
     F, rp, cp, Tcb, Tr, Tout = dims
     (af, ar, ac, apos, cb_t, cb_offv, cb_roff, cb_L, cb_cpos_off, cposv,
      cb_cum, r_t, r_nc, r_cum, r_dst, o_t, o_L, o_ns, o_offv, o_cum) = dev
-    Fm = Ax.new_zeros((F, rp, cp))
-    Fm[af, ar, ac] = Ax[apos]
+    Fm = Ax.new_zeros(Ax.shape[:-1] + (F, rp, cp))
+    Fm[..., af, ar, ac] = Ax[..., apos]
     if Tcb:  # child CBs: rows below the original rows, one slot each
         p, off = _expand(cb_cum, Tcb)
         L = cb_L[p]
         bi = off // L
-        Fm[cb_t[p], cb_roff[p] + bi, cposv[cb_cpos_off[p] + off - bi * L]] = (
-            cbx[cb_offv[p] + off])
+        Fm[..., cb_t[p], cb_roff[p] + bi,
+           cposv[cb_cpos_off[p] + off - bi * L]] = cbx[..., cb_offv[p] + off]
     # reduced QR: Q [F, rp, kq] (every column a solve touches) and the upper
     # trapezoid Rt [F, kq, cp] holding the R rows and the CB block
     Q, Rt = torch.linalg.qr(Fm, mode="reduced")
     if Tr:
         p, off = _expand(r_cum, Tr)
         i = off // r_nc[p]
-        Rx.index_copy_(0, r_dst, Rt[r_t[p], i, off - i * r_nc[p]])
+        Rx.index_copy_(-1, r_dst, Rt[..., r_t[p], i, off - i * r_nc[p]])
     if Tout:
         p, off = _expand(o_cum, Tout)
         L = o_L[p]
         bi = off // L
         j = off - bi * L
         keep = j >= bi  # the upper trapezoid; the rest goes to the spare slot
-        dst = torch.where(keep, o_offv[p] + off, cbx.shape[0] - 1)
-        cbx.index_copy_(0, dst, Rt[o_t[p], o_ns[p] + bi, o_ns[p] + j])
+        dst = torch.where(keep, o_offv[p] + off, cbx.shape[-1] - 1)
+        cbx.index_copy_(-1, dst, Rt[..., o_t[p], o_ns[p] + bi, o_ns[p] + j])
     return Q
+
+
+def _qr_mf_values(Ax: torch.Tensor, plan: QRMFPlan):
+    """Factor the values Ax [nnz] (or K instances' [K, nnz]) of the plan's
+    matrix on Ax's device. Returns (the buckets' Q blocks, Rx with its
+    spare slot); caches nothing on the plan."""
+    lead = Ax.shape[:-1]
+    Rx = Ax.new_zeros(lead + (plan.rnz + 1,))
+    cbx = Ax.new_zeros(lead + (plan.cb_total + 1,))
+    flat = [b for lev in plan.levels for b in lev]
+    qs = [_qr_front(Rx, cbx, Ax, dev, b.dims)
+          for b, dev in zip(flat, _factor_dev(plan, Ax.device))]
+    return qs, Rx
 
 
 def _qr_mf_factor(Ax: torch.Tensor, plan: QRMFPlan) -> None:
     """Factor the values Ax of the plan's matrix on Ax's device; caches the
     buckets' Q blocks, Ax, and R (Rx with its spare slot, and the [rnz] view
     the sweeps read) on the plan."""
-    Rx = Ax.new_zeros(plan.rnz + 1)
-    cbx = Ax.new_zeros(plan.cb_total + 1)
-    flat = [b for lev in plan.levels for b in lev]
-    qs = [_qr_front(Rx, cbx, Ax, dev, b.dims)
-          for b, dev in zip(flat, _factor_dev(plan, Ax.device))]
+    qs, Rx = _qr_mf_values(Ax, plan)
     plan.__dict__["_cache_q"] = qs
     plan.__dict__["_cache_ax"] = Ax  # the residuals' values
     plan.__dict__["_cache_rx"] = Rx
@@ -519,29 +536,31 @@ def _solve_dev(plan: QRMFPlan, device) -> list:
 
 
 def _qt_apply(plan: QRMFPlan, z: torch.Tensor, qs, sdevs) -> torch.Tensor:
-    """c = (Qᵀ z) restricted to R's rows (n of them); z is [m, B]."""
-    B = z.shape[1]
-    c = z.new_zeros((plan.n, B))
-    cbz = z.new_zeros((plan.cbz_total + 1, B))  # last row: the zero pad
+    """c = (Qᵀ z) restricted to R's rows (n of them); z is [m, B], or
+    [K, m, B] with K instances' Q blocks."""
+    lead, B = z.shape[:-2], z.shape[-1]
+    c = z.new_zeros(lead + (plan.n, B))
+    cbz = z.new_zeros(lead + (plan.cbz_total + 1, B))  # last row: zero pad
     for Q, sd in zip(qs, sdevs):
-        zf = torch.cat([z, cbz])[sd["src"]]  # [F, rp, B]
-        y = (Q.mT @ zf).reshape(-1, B)  # [F * kq, B]
-        c[sd["c"]] = y[sd["fc"]]
-        cbz[sd["z"]] = y[sd["fz"]]
+        zf = torch.cat([z, cbz], dim=-2)[..., sd["src"], :]  # [(K,) F, rp, B]
+        y = (Q.mT @ zf).flatten(-3, -2)  # [(K,) F * kq, B]
+        c[..., sd["c"], :] = y[..., sd["fc"], :]
+        cbz[..., sd["z"], :] = y[..., sd["fz"], :]
     return c
 
 
 def _q_apply(plan: QRMFPlan, w: torch.Tensor, qs, sdevs) -> torch.Tensor:
     """z = Q [w; 0], the buckets in reverse (minimum-norm branch); w is
-    [n, B], z is [m, B]."""
-    B = w.shape[1]
-    z = w.new_zeros((plan.m, B))
-    cbz = w.new_zeros((plan.cbz_total + 1, B))  # last row stays zero
-    wz = torch.cat([w, w.new_zeros((1, B))])
+    [(K,) n, B], z is [(K,) m, B]."""
+    lead, B = w.shape[:-2], w.shape[-1]
+    z = w.new_zeros(lead + (plan.m, B))
+    cbz = w.new_zeros(lead + (plan.cbz_total + 1, B))  # last row stays zero
+    wz = torch.cat([w, w.new_zeros(lead + (1, B))], dim=-2)
     for Q, sd in zip(reversed(qs), reversed(sdevs)):
-        zf = (Q @ (wz[sd["u1"]] + cbz[sd["u2"]])).reshape(-1, B)  # [F*rp, B]
-        z[sd["r"]] = zf[sd["fr"]]
-        cbz[sd["b"]] = zf[sd["fb"]]
+        zf = (Q @ (wz[..., sd["u1"], :] + cbz[..., sd["u2"], :])
+              ).flatten(-3, -2)  # [(K,) F * rp, B]
+        z[..., sd["r"], :] = zf[..., sd["fr"], :]
+        cbz[..., sd["b"], :] = zf[..., sd["fb"], :]
     return z
 
 
@@ -559,13 +578,27 @@ def _r_plans(plan: QRMFPlan, kind: int):
     return tp
 
 
-def _r_sweep(plan: QRMFPlan, X: torch.Tensor, kind: int) -> torch.Tensor:
-    """R⁻¹ X (kind 1) or R⁻ᵀ X (kind 3) for X [n, B] on R's device: one
-    SpTRSV sweep (the CUDA kernel on a card)."""
+def _r_sweep(plan: QRMFPlan, X: torch.Tensor, kind: int,
+             rv: torch.Tensor) -> torch.Tensor:
+    """R⁻¹ X (kind 1) or R⁻ᵀ X (kind 3) for X [n, B] and R's values rv
+    [rnz] (X [K, n, B] with rv [K, rnz]) on their device: one SpTRSV sweep
+    (the CUDA kernel on a card)."""
     from ..ops.sptrsv_cuda import sptrsv_multi
 
-    return sptrsv_multi(plan.__dict__["_cache_rv"], X, _r_plans(plan, kind),
-                        kind)
+    return sptrsv_multi(rv, X, _r_plans(plan, kind), kind)
+
+
+def _factors(plan: QRMFPlan, factors, what: str):
+    """(Q blocks, the factored values, R's values): `factors` when given
+    (`_qr_mf_values` of K instances), else the last `qr_mf`'s, cached on
+    the plan."""
+    if factors is not None:
+        qs, ax, rx = factors
+        return qs, ax, rx[..., : plan.rnz]
+    qs = plan.__dict__.get("_cache_q")
+    if qs is None:
+        raise RuntimeError(f"{what} requires a preceding qr_mf")
+    return qs, plan.__dict__["_cache_ax"], plan.__dict__["_cache_rv"]
 
 
 def _resid_pattern(plan: QRMFPlan, A: Sprs, device, cols=None):
@@ -585,48 +618,54 @@ def _resid_pattern(plan: QRMFPlan, A: Sprs, device, cols=None):
     return device_cache(plan, "_torch_resid_pattern", device, make)
 
 
-def qrsol_mf_ls(a: Sprs, s: Symb, plan: QRMFPlan, b: np.ndarray):
+def qrsol_mf_ls(a: Sprs, s: Symb, plan: QRMFPlan, b: np.ndarray,
+                factors=None):
     """Least-squares solve (m >= n) on the tree of the last `qr_mf`:
     x = R⁻¹ (Qᵀ b)[:n], in the PERMUTED column order (the caller applies
     s.q). Returns (x, max|A'(b - Ax)|, max(1, max|A'b|)): the f64
-    least-squares gradient and its scale, for the caller's gate."""
-    qs = plan.__dict__.get("_cache_q")
-    if qs is None:
-        raise RuntimeError("qrsol_mf_ls requires a preceding qr_mf")
-    dev = plan.__dict__["_cache_rx"].device
+    least-squares gradient and its scale, for the caller's gate. With
+    `factors` (`_qr_mf_values` of K instances' values, and those values)
+    b is [K, m] and each of the three is per instance ([K, n], [K], [K])."""
+    from ..solve import _amax, _coo_amul
+
+    qs, axf, rv = _factors(plan, factors, "qrsol_mf_ls")
+    dev = rv.device
     # x lives in the permuted order: slot c holds original column q[c]
     q = (np.asarray(s.q, np.int64) if s.q is not None
          else np.arange(a.n, dtype=np.int64))
     jq = np.empty(a.n, np.int64)
     jq[q] = np.arange(a.n)
-    from ..solve import _coo_amul
-
     ai, acol, sel = _resid_pattern(plan, a, dev, jq)
-    ax = plan.__dict__["_cache_ax"][sel]
-    b64 = torch.as_tensor(np.asarray(b, np.float64), device=dev)[:, None]
-    xp = _r_sweep(plan, _qt_apply(plan, b64, qs, _solve_dev(plan, dev)), 1)
+    ax = axf[..., sel]
+    b64 = torch.as_tensor(np.asarray(b, np.float64), device=dev)[..., None]
+    xp = _r_sweep(plan, _qt_apply(plan, b64, qs, _solve_dev(plan, dev)), 1,
+                  rv)
     grad = _coo_amul(acol, ai, ax, a.n)  # A' r, in the permuted order
     r = b64 - _coo_amul(ai, acol, ax, a.m)(xp)
-    g = torch.stack([grad(r).abs().max(), grad(b64).abs().max()]).tolist()
-    return xp[:, 0].cpu().numpy(), g[0], max(1.0, g[1])
+    g = _amax(torch.stack([grad(r), grad(b64)], dim=-3))  # [(K,) 2]
+    gmax, gs = (g[0], g[1]) if np.ndim(g) == 1 else (g[:, 0], g[:, 1])
+    return xp[..., 0].cpu().numpy(), gmax, np.maximum(1.0, gs)
 
 
-def qrsol_mf_mn(at: Sprs, s: Symb, plan: QRMFPlan, b: np.ndarray):
+def qrsol_mf_mn(at: Sprs, s: Symb, plan: QRMFPlan, b: np.ndarray,
+                factors=None):
     """Minimum-norm solve through the tree of the last `qr_mf` of Aᵀ
     (reference underdetermined branch, src/lib.rs:943-955):
     x = Q [R⁻ᵀ b_q ; 0]. `plan` is the plan of Aᵀ (plan.m = A's n); b has
-    plan.n values. Returns (x [plan.m] in original order, max|b - Ax|)."""
-    qs = plan.__dict__.get("_cache_q")
-    if qs is None:
-        raise RuntimeError("qrsol_mf_mn requires a preceding qr_mf")
-    dev = plan.__dict__["_cache_rx"].device
-    from ..solve import _coo_amul
+    plan.n values. Returns (x [plan.m] in original order, max|b - Ax|).
+    With `factors` (as for `qrsol_mf_ls`) b is [K, plan.n], and both are
+    per instance."""
+    from ..solve import _amax, _coo_amul
+
+    qs, axf, rv = _factors(plan, factors, "qrsol_mf_mn")
+    dev = rv.device
 
     ati, acol, sel = _resid_pattern(plan, at, dev)
-    ax = plan.__dict__["_cache_ax"][sel]
-    b64 = torch.as_tensor(np.asarray(b, np.float64), device=dev)[:, None]
-    bq = b64 if plan.q is None else b64[torch.as_tensor(plan.q, device=dev)]
-    x = _q_apply(plan, _r_sweep(plan, bq, 3), qs, _solve_dev(plan, dev))
+    ax = axf[..., sel]
+    b64 = torch.as_tensor(np.asarray(b, np.float64), device=dev)[..., None]
+    bq = (b64 if plan.q is None
+          else b64[..., torch.as_tensor(plan.q, device=dev), :])
+    x = _q_apply(plan, _r_sweep(plan, bq, 3, rv), qs, _solve_dev(plan, dev))
     # A = atᵀ: (A x)[c] = Σ over at's column c of at.x[k] x[at.i[k]]
     r = b64 - _coo_amul(acol, ati, ax, plan.n)(x)
-    return x[:, 0].cpu().numpy(), float(r.abs().max())
+    return x[..., 0].cpu().numpy(), _amax(r)

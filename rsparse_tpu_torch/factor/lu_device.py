@@ -57,8 +57,10 @@ def _lookup(keys_sorted: np.ndarray, order: np.ndarray, qkeys: np.ndarray) -> np
 
 
 def _gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """src[idx], with 0 where idx < 0 (absent entry)."""
-    return torch.where(idx >= 0, src[idx.clamp(min=0)], src.new_zeros(()))
+    """src[..., idx] (the last dimension: a leading one holds instances),
+    with 0 where idx < 0 (absent entry)."""
+    return torch.where(idx >= 0, src[..., idx.clamp(min=0)],
+                       src.new_zeros(()))
 
 
 def _index_tensors(arrays, size_checks, device) -> tuple:
@@ -273,33 +275,34 @@ def _build_lu_tail(n, cut, Lp, Li, Up, Ui, akeys_s, aorder, lcols):
 
 
 def _unpivoted_lu_blocked(M: torch.Tensor, panel: int = 64):
-    """Unpivoted dense LU of a single [D, D] matrix, right-looking blocked
-    (panel rank-1 updates + one matmul Schur update per panel). Returns
-    (packed LU, worst |piv|/colmax ratio as a 0-dim tensor)."""
+    """Unpivoted dense LU of a single [D, D] matrix (or of K at once,
+    [K, D, D]), right-looking blocked (panel rank-1 updates + one matmul
+    Schur update per panel). Returns (packed LU, worst |piv|/colmax ratio
+    as a 0-dim tensor, [K] for K matrices)."""
     M = M.clone()
-    D = M.shape[0]
+    D = M.shape[-1]
     tiny = torch.finfo(M.dtype).tiny
-    worst = M.new_full((), float("inf"))
+    worst = M.new_full(M.shape[:-2], float("inf"))
     for b0 in range(0, D, panel):
         pb = min(panel, D - b0)
         e = b0 + pb
         for c in range(b0, e):
-            piv = M[c, c]
-            below = M[c + 1:, c]
-            colmax = torch.maximum(below.abs().amax() if below.numel()
-                                   else piv.new_zeros(()), piv.abs())
+            piv = M[..., c, c]
+            below = M[..., c + 1:, c]
+            colmax = torch.maximum(below.abs().amax(-1) if below.shape[-1]
+                                   else torch.zeros_like(piv), piv.abs())
             worst = torch.minimum(worst, piv.abs() / colmax.clamp(min=tiny))
             safe = torch.where(piv == 0, torch.ones_like(piv), piv)
-            l = below / safe
-            M[c + 1:, c + 1:e] -= l[:, None] * M[c, c + 1:e][None, :]
-            M[c + 1:, c] = l
+            l = below / safe[..., None]
+            M[..., c + 1:, c + 1:e] -= l[..., :, None] * M[..., c, None, c + 1:e]
+            M[..., c + 1:, c] = l
         if e < D:
-            L11 = M[b0:e, b0:e].tril(-1) + torch.eye(pb, dtype=M.dtype,
-                                                      device=M.device)
-            U12 = torch.linalg.solve_triangular(L11, M[b0:e, e:], upper=False,
-                                                unitriangular=True)
-            M[b0:e, e:] = U12
-            M[e:, e:] -= M[e:, b0:e] @ U12
+            L11 = M[..., b0:e, b0:e].tril(-1) + torch.eye(pb, dtype=M.dtype,
+                                                           device=M.device)
+            U12 = torch.linalg.solve_triangular(L11, M[..., b0:e, e:],
+                                                upper=False, unitriangular=True)
+            M[..., b0:e, e:] = U12
+            M[..., e:, e:] -= M[..., e:, b0:e] @ U12
     return M, worst
 
 
@@ -314,7 +317,8 @@ def _tail_dev(tail: LUDenseTail, lsize: int, usize: int, device) -> tuple:
 
 def _lu_tail(Lx, Ux, Ax, tol: float, tail: LUDenseTail):
     """Dense trailing block (the JAX package's `_lu_tail_kernel`): fills
-    Lx/Ux in place; returns (margin, bad)."""
+    Lx/Ux in place; returns (margin, bad), [K] each for K instances (Lx
+    [K, lnz+1], the U_NT sweep one launch for all K)."""
     from ..ops.sptrsv_cuda import sptrsv_multi
 
     (ant_pos, att_pos, ltn_src, ltn_r, ltn_c, unt_pos, unt_r, unt_c,
@@ -324,21 +328,22 @@ def _lu_tail(Lx, Ux, Ax, tol: float, tail: LUDenseTail):
     # U_NT = L_NN^{-1} A(N, T); L_NN is unit-lower with explicit unit diag
     Unt = sptrsv_multi(Lx, rhs, tail.tri, 0)
     D = tail.d
-    Ltn = Lx.new_zeros((D, tail.cut))
-    Ltn[ltn_r, ltn_c] = Lx[ltn_src]
+    Ltn = Lx.new_zeros(Lx.shape[:-1] + (D, tail.cut))
+    Ltn[..., ltn_r, ltn_c] = Lx[..., ltn_src]
     S = _gather(Ax, att_pos) - Ltn @ Unt
     LUt, worst = _unpivoted_lu_blocked(S)
     Ltt = LUt.tril(-1) + torch.eye(D, dtype=LUt.dtype, device=LUt.device)
     Utt = LUt.triu()
-    Ux[unt_pos] = Unt[unt_r, unt_c]
-    Lx[ltt_pos] = Ltt[ltt_r, ltt_c]
-    Ux[utt_pos] = Utt[utt_r, utt_c]
+    Ux[..., unt_pos] = Unt[..., unt_r, unt_c]
+    Lx[..., ltt_pos] = Ltt[..., ltt_r, ltt_c]
+    Ux[..., utt_pos] = Utt[..., utt_r, utt_c]
     return worst - tol, worst == 0.0
 
 
 def _lu_step(Lx, Ux, tensors, Ax, tol: float):
     """One level: dense tri solve for U, rank update for L (Lx/Ux in place).
-    Returns (margin, bad) as 0-dim tensors."""
+    Returns (margin, bad) as 0-dim tensors ([K] for K instances, Lx
+    [K, lnz+1])."""
     (Midx, Nidx, Kidx, bidx_u, bidx_l, akk, upos, dpos, lpos, ldiag) = tensors
     M = _gather(Lx, Midx)
     r = M.shape[-1]
@@ -346,19 +351,20 @@ def _lu_step(Lx, Ux, tensors, Ax, tol: float):
     b_u = _gather(Ax, bidx_u)
     z = torch.linalg.solve_triangular(M, b_u[..., None], upper=False)[..., 0]
     ukk = _gather(Ax, akk) - (_gather(Lx, Kidx) * z).sum(-1)
-    xl = _gather(Ax, bidx_l) - torch.einsum("klr,kr->kl", _gather(Lx, Nidx), z)
+    xl = _gather(Ax, bidx_l) - torch.einsum("...klr,...kr->...kl",
+                                            _gather(Lx, Nidx), z)
     safe_ukk = torch.where(ukk == 0, torch.ones_like(ukk), ukk)
-    lcol = xl / safe_ukk[:, None]
+    lcol = xl / safe_ukk[..., None]
     # stability margin: reference tol rule (src/lib.rs:587-589) — the static
     # (diagonal) pivot is the one the reference would keep iff
     # |ukk| >= tol * max(|ukk|, max|xl|); margin < 0 → host fallback.
     colmax = torch.maximum(ukk.abs(), xl.abs().amax(dim=-1))
     margin = ukk.abs() - tol * colmax
-    Ux[upos.reshape(-1)] = z.reshape(-1)
-    Ux[dpos] = ukk
-    Lx[lpos.reshape(-1)] = lcol.reshape(-1)
-    Lx[ldiag] = 1.0
-    return margin.min(), (ukk == 0).any()
+    Ux[..., upos.reshape(-1)] = z.flatten(-2)
+    Ux[..., dpos] = ukk
+    Lx[..., lpos.reshape(-1)] = lcol.flatten(-2)
+    Lx[..., ldiag] = 1.0
+    return margin.amin(-1), (ukk == 0).any(-1)
 
 
 def _levels_dev(plan: LUPlan, device) -> list:
@@ -370,9 +376,10 @@ def _levels_dev(plan: LUPlan, device) -> list:
 
 def _run_levels(plan: LUPlan, Ax: torch.Tensor, tol: float):
     """Level phase + dense tail of a level plan on Ax's device. Returns
-    (Lx[lnz+1], Ux[unz+1], margins, bads) with 0-dim tensor stats."""
-    Lx = Ax.new_zeros(plan.lnz + 1)
-    Ux = Ax.new_zeros(plan.unz + 1)
+    (Lx[lnz+1], Ux[unz+1], margins, bads) with 0-dim tensor stats; for K
+    instances (Ax [K, nnz]) the value arrays [K, ...] and stats [K]."""
+    Lx = Ax.new_zeros(Ax.shape[:-1] + (plan.lnz + 1,))
+    Ux = Ax.new_zeros(Ax.shape[:-1] + (plan.unz + 1,))
     margins, bads = [], []
     for tensors in _levels_dev(plan, Ax.device):
         mg, bd = _lu_step(Lx, Ux, tensors, Ax, tol)

@@ -4,7 +4,9 @@ torch versions.
 `sptrsv_multi(tx, X, plan, kind)` solves T X = B (or T' X = B) for X[n, B]
 with the schedule of `solve.tri_plan`, in float32 or float64. It replaces
 the TPU kernel `rsparse_tpu/ops/sptrsv_pallas.py::_sweep_call` (f32 only
-there) and, in float64, its XLA twin `solve._tri_sweep_multi`.
+there) and, in float64, its XLA twin `solve._tri_sweep_multi` (which the
+JAX package's batched-values solvers vmap). With tx [K, L] and X [K, n, B]
+it solves K factors of one pattern (K instances' values), in one launch.
 
   - On a CUDA tensor it launches the hand-written kernel in
     `csrc/sptrsv.cu`, one launch per sweep: the plan's dense block (if any)
@@ -60,7 +62,8 @@ class _Args(ctypes.Structure):
         "lvl", "cid", "dv", "esrc", "edst", "epk", "ev", "dcol", "ddiag",
         "dpan", "x")]
         + [(f, ctypes.c_int) for f in (
-            "nlev", "ncols", "nents", "k", "kpad", "dense_first", "n", "B")])
+            "nlev", "ncols", "nents", "k", "kpad", "dense_first", "n", "B",
+            "pan_total", "K")])
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -197,7 +200,11 @@ def _kernel_streams(plan, kind: int, device: torch.device) -> dict:
 def _check(tx: torch.Tensor, X: torch.Tensor, plan, kind: int) -> None:
     if kind not in (0, 1, 2, 3):
         raise ValueError(f"kind must be 0..3, got {kind}")
-    if X.dim() != 2 or X.shape[0] != plan.n:
+    if tx.dim() == 2:  # K instances
+        if X.dim() != 3 or X.shape[:2] != (tx.shape[0], plan.n):
+            raise ValueError(f"X must be [{tx.shape[0]}, {plan.n}, B] for "
+                             f"values [K, L], got {tuple(X.shape)}")
+    elif tx.dim() != 1 or X.dim() != 2 or X.shape[0] != plan.n:
         raise ValueError(f"X must be [{plan.n}, B], got {tuple(X.shape)}")
     if tx.dtype != X.dtype or tx.device != X.device:
         raise ValueError("factor values and X must share dtype and device")
@@ -206,8 +213,8 @@ def _check(tx: torch.Tensor, X: torch.Tensor, plan, kind: int) -> None:
 def _prepass(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
     _check(tx, X, plan, kind)
     st = _streams(plan, X.device)
-    ev = tx[st["epos"]]
-    dv = tx[st["cdiag"]]
+    ev = tx[..., st["epos"]]
+    dv = tx[..., st["cdiag"]]
     eb = st["ecol"] if kind in (0, 1) else st["eslot"]
     return st, ev, dv, eb
 
@@ -215,27 +222,29 @@ def _prepass(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
 def sptrsv_plain_multi(tx: torch.Tensor, X: torch.Tensor, plan,
                        kind: int) -> torch.Tensor:
     """Plain torch sweep over the whole level schedule (any device): the
-    kernel's reference version."""
+    kernel's reference version. Takes the kernel's shapes: tx [L] with
+    X [n, B], or tx [K, L] with X [K, n, B]."""
     return _sweep_plain(*_prepass(tx, X, plan, kind), X, plan, kind)
 
 
 def _sweep_plain(st, ev, dv, eb, X: torch.Tensor, plan, kind: int):
+    # rows are the next-to-last dimension (a leading one holds instances)
     x = X.clone()
-    B = x.shape[1]
     cid, erow = st["cid"], st["erow"]
     eo, co = st["eoff_h"], st["coff_h"]
     for lev in range(plan.nlev):
         c0, c1, e0, e1 = co[lev], co[lev + 1], eo[lev], eo[lev + 1]
         j = cid[c0:c1]
-        d = dv[c0:c1, None]
+        d = dv[..., c0:c1, None]
         if kind in (0, 1):
-            x[j] = x[j] / d
-            x.index_add_(0, erow[e0:e1], ev[e0:e1, None] * x[eb[e0:e1]],
-                         alpha=-1)
+            x[..., j, :] = x[..., j, :] / d
+            x.index_add_(-2, erow[e0:e1],
+                         ev[..., e0:e1, None] * x[..., eb[e0:e1], :], alpha=-1)
         else:
-            contrib = x.new_zeros((c1 - c0, B)).index_add_(
-                0, eb[e0:e1], ev[e0:e1, None] * x[erow[e0:e1]])
-            x[j] = (x[j] - contrib) / d
+            contrib = x.new_zeros(x.shape[:-2] + (c1 - c0, x.shape[-1]))
+            contrib.index_add_(-2, eb[e0:e1],
+                               ev[..., e0:e1, None] * x[..., erow[e0:e1], :])
+            x[..., j, :] = (x[..., j, :] - contrib) / d
     return x
 
 
@@ -245,7 +254,7 @@ def sptrsv_plain_split_multi(tx: torch.Tensor, X: torch.Tensor, plan,
     block as one dense triangular solve, its outside entries in one pass,
     and the other columns' levels. The whole level loop when the plan has
     no dense block. No main path calls it; the tests hold it against
-    `sptrsv_plain_multi` and the JAX package."""
+    `sptrsv_plain_multi` and the JAX package. One instance only (tx [L])."""
     d = plan.dense
     if d is None:
         return sptrsv_plain_multi(tx, X, plan, kind)
@@ -327,29 +336,35 @@ def _values(tx: torch.Tensor, ks: dict) -> list:
     in the kernel streams, with a reference to `tx` itself, while `tx` is
     unchanged (the same tensor at the same version counter), so repeated
     sweeps with one factor (the serve handle's) gather once. A change made to tx's memory
-    behind torch's back (not through a torch op) is not seen."""
+    behind torch's back (not through a torch op) is not seen. For tx [K, L]
+    (K instances) each stream is [K, ...], contiguous: the kernel reads
+    instance k's at k times the stream's length."""
     hit = ks.get("values")
     if hit is not None and hit[0] is tx and hit[1] == tx._version:
         return hit[2]
-    ev = tx[ks["epos"]] / tx[ks["ediag"]]
+    ev = tx[..., ks["epos"]] / tx[..., ks["ediag"]]
     r0, r1 = ks["raw"]
-    ev[r0:r1] = tx[ks["epos"][r0:r1]]
-    vals = [ev, tx[ks["cdiag"]]]
+    ev[..., r0:r1] = tx[..., ks["epos"][r0:r1]]
+    vals = [ev, tx[..., ks["cdiag"]]]
     if ks["k"]:
-        dpan = tx.new_zeros(ks["pan_total"])
-        dpan[ks["pan_slot"]] = tx[ks["tri_pos"]]
-        vals += [dpan, tx[ks["ddiag"]]]
+        dpan = tx.new_zeros(tx.shape[:-1] + (ks["pan_total"],))
+        dpan[..., ks["pan_slot"]] = tx[..., ks["tri_pos"]]
+        vals += [dpan, tx[..., ks["ddiag"]]]
     ks["values"] = (tx, tx._version, vals)
     return vals
 
 
 def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
-    """One kernel launch. Returns X solved: in the shared variant as the
-    transposed view of a [B, n] buffer."""
+    """One kernel launch, grid (B, K). Returns X solved: in the shared
+    variant as the transposed view of a [(K,) B, n] buffer."""
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"SpTRSV kernel takes float32/float64, got {X.dtype}")
     ks = _kernel_streams(plan, kind, X.device)
-    B = X.shape[1]
+    B = X.shape[-1]
+    K = X.shape[0] if X.dim() == 3 else 1
+    if K > 65535:
+        raise ValueError(f"SpTRSV kernel takes at most 65,535 instances, "
+                         f"got {K}")
     cfg = launch_config(plan, X.dtype, X.device)
     for what, count in (("entry", ks["nents"] + BATCH * THREADS),
                         ("dense block", ks["pan_total"]),
@@ -363,14 +378,14 @@ def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
                  edst=ks["edst"].data_ptr(), ev=keep[0].data_ptr(),
                  epk=ks["epk"].data_ptr() if cfg["shared"] else None,
                  nlev=ks["nlev"], ncols=ks["ncols"], nents=ks["nents"],
-                 n=plan.n, B=B)
+                 n=plan.n, B=B, pan_total=ks["pan_total"], K=K)
     if ks["k"]:
         args.dcol, args.ddiag, args.dpan = (
             ks["dcol"].data_ptr(), keep[3].data_ptr(), keep[2].data_ptr())
         args.k, args.kpad = ks["k"], ks["kpad"]
         args.dense_first = int(ks["first"])
     if cfg["shared"]:  # X^T [B, n]: each CTA's RHS column contiguous
-        xt = X.t()
+        xt = X.transpose(-1, -2)
         x = xt.clone() if xt.is_contiguous() else xt.contiguous()
     else:
         x = X.contiguous().clone()
@@ -384,7 +399,7 @@ def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
     if rc != 0:
         raise RuntimeError(f"SpTRSV kernel launch failed (cudaError {rc})")
     sptrsv_multi.launches += 1
-    return x.t() if cfg["shared"] else x
+    return x.transpose(-1, -2) if cfg["shared"] else x
 
 
 def sptrsv_multi(tx: torch.Tensor, X: torch.Tensor, plan, kind: int, *,
@@ -392,7 +407,9 @@ def sptrsv_multi(tx: torch.Tensor, X: torch.Tensor, plan, kind: int, *,
     """Batched triangular solve of X[n, B]; returns a new [n, B] tensor.
 
     tx: the factor's value array (1-D tensor; the plan's positions index
-    it), on X's device and in X's dtype. plan: `solve.tri_plan(t, kind)`.
+    it), on X's device and in X's dtype; or K instances' value arrays
+    [K, L] of factors with one pattern, with X [K, n, B] (one launch, the
+    result [K, n, B]). plan: `solve.tri_plan(t, kind)`.
     kind: 0 lsolve / 1 usolve (scatter form), 2 ltsolve / 3 utsolve (gather
     form). A CUDA tensor goes through the kernel; a CPU tensor through the
     plain version. `contiguous=False` lets the kernel's shared-memory

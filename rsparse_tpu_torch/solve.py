@@ -25,7 +25,9 @@ the whole factor through the kernel plus f64 refinement (CSNE steps for
 `qrsol_multi` answer B[n, nrhs] on one factorization (the multifrontal
 tree, a cached serve handle, or f64 sweeps over all columns), and
 `cholsol_ir` factors A's values rounded to a lower precision and refines
-in f64. `qrsol` runs the
+in f64. The batched-values drivers `cholsol_vals`, `lusol_vals` and
+`qrsol_vals` answer K systems of one pattern (values [K, nnz]) with one
+multifrontal factorization and solve of all K on the device. `qrsol` runs the
 multifrontal QR at or above `config.mf_min_n` (the tree's Qᵀb or Q·x and
 one R sweep, held to an acceptance gate, the host engine's exact QR as the
 escape), `factor.qr` and the reference's apply below it; `qrsol_ls` solves
@@ -61,6 +63,7 @@ __all__ = [
     "lusol", "cholsol", "lusol_serve", "cholsol_serve",
     "happly_dense", "qrsol", "qrsol_ls",
     "cholsol_multi", "lusol_multi", "qrsol_multi", "qrsol_serve", "cholsol_ir",
+    "cholsol_vals", "lusol_vals", "qrsol_vals",
 ]
 
 
@@ -454,10 +457,19 @@ def _host_spmm(a: Sprs, X: np.ndarray) -> np.ndarray:
 def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor,
               rows: Optional[int] = None):
     """X [k, B] -> A @ X for the COO matrix (Mi, Mj, Mx) with `rows` rows
-    (default k: square) (f64 residuals)."""
+    (default k: square) (f64 residuals). With K instances' values Mx
+    [K, nnz] (one pattern), X [K, k, B] -> [K, rows, B]."""
     return lambda X: X.new_zeros(
-        (X.shape[0] if rows is None else rows, X.shape[1])).index_add_(
-        0, Mi, Mx[:, None] * X[Mj])
+        X.shape[:-2] + (X.shape[-2] if rows is None else rows, X.shape[-1])
+    ).index_add_(-2, Mi, Mx[..., None] * X[..., Mj, :])
+
+
+def _amax(t: torch.Tensor):
+    """max|t| over the last two dimensions, read back: a float, or an array
+    [K] for K instances (t [K, rows, B])."""
+    v = (t.abs().amax((-2, -1)) if t.dim() >= 2 else t.abs().amax())
+    v = v.cpu().numpy()
+    return float(v) if v.ndim == 0 else v
 
 
 def _host_spmm_t(a: Sprs, R: np.ndarray) -> np.ndarray:
@@ -479,30 +491,45 @@ def _refine(correct, resid, B64: torch.Tensor, steps: int, first=None):
     The square solves pass their solve and resid(X) = B - AX; the CSNE
     handle (`qrsol_serve`) the Gram solve (then A' for m < n) and the
     least-squares gradient A'(B - AX) (B - AX for m < n). Reads max|r|
-    back once per step. Returns (X, max|r| as a float)."""
+    back once per step. Returns (X, max|r| as a float).
+
+    B64 [K, n, B] holds K instances (the batched-values solvers): each
+    keeps its own best iterate and stops on its own, the steps run while
+    any instance is active, and each step reads the K maxima back at once;
+    max|r| is then an array [K]."""
     X = correct(B64 if first is None else first)
     r = resid(X)
-    rmax = float(r.abs().max())
-    scale = max(float(B64.abs().max()), 1.0)
+    rmax = np.asarray(_amax(r))
+    scale = np.maximum(np.asarray(_amax(B64)), 1.0)
     # well-conditioned systems exit after one check; weak static-pivot
     # factors (element growth) get the extra contractions they need
-    k, prev = 0, float("inf")
-    while k < steps and rmax > 1e-13 * scale and rmax < prev:
+    k, prev = 0, np.full_like(rmax, np.inf)
+    active = (rmax > 1e-13 * scale) & (rmax < prev)
+    while k < steps and active.any():
         X2 = X + correct(r)
         r2 = resid(X2)
-        rmax2 = float(r2.abs().max())
-        if rmax2 < rmax:
+        rmax2 = np.asarray(_amax(r2))
+        better = active & (rmax2 < rmax)
+        if better.all():
             X, r = X2, r2
-        prev, rmax, k = rmax, min(rmax2, rmax), k + 1
-    return X, rmax
+        elif better.any():  # keep each instance's best iterate
+            keep = torch.as_tensor(better, device=X.device)[..., None, None]
+            X, r = torch.where(keep, X2, X), torch.where(keep, r2, r)
+        prev = np.where(active, rmax, prev)
+        rmax = np.where(active, np.minimum(rmax2, rmax), rmax)
+        k += 1
+        active &= (rmax > 1e-13 * scale) & (rmax < prev)
+    return X, (float(rmax) if rmax.ndim == 0 else rmax)
 
 
 def _permuted(solve, p: Optional[torch.Tensor]):
     """R -> P' solve(P R) for the row permutation p (Z[p[i]] = R[i] on the
-    way in, X[i] = Y[p[i]] on the way out; None = identity)."""
+    way in, X[i] = Y[p[i]] on the way out; None = identity). Rows are the
+    next-to-last dimension of R (a leading one may hold instances)."""
     if p is None:
         return solve
-    return lambda R: solve(torch.zeros_like(R).index_copy_(0, p, R))[p]
+    return lambda R: solve(
+        torch.zeros_like(R).index_copy_(-2, p, R))[..., p, :]
 
 
 def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
@@ -743,19 +770,23 @@ def _lu_refine_body(plan, n: int, B64: torch.Tensor, cache, Mi, Mj, Mx,
     early-exit keep-best f64 refinement steps against the COO matrix
     (Mi, Mj, Mx) in original row order. pin: row permutation (Z[pin[i]] =
     R[i]); q: column permutation (X[q[i]] = Y[i]) or None. Returns
-    (X [n, nrhs] f64, max|r|, max|X|), the last two as floats."""
+    (X [n, nrhs] f64, max|r|, max|X|), the last two as floats. K instances
+    (`lusol_vals`): B64 [K, n, nrhs], a cache tree of K, Mx [K, nnz] and
+    pin [K, n] (each instance's own pivots), the maxima [K] arrays."""
     from .factor.frontal_lu import _solve_lu_mf_dev
 
     ft = cache[1].dtype
 
     def solve_once(R):  # original row order -> original column order
-        Z = torch.zeros_like(R).index_copy_(0, pin, R)
+        Z = (torch.zeros_like(R).index_copy_(-2, pin, R) if pin.dim() == 1
+             else torch.zeros_like(R).scatter_(
+                 -2, pin[..., None].expand(R.shape), R))
         Y = _solve_lu_mf_dev(plan, Z.to(ft), cache).to(torch.float64)
-        return Y if q is None else torch.zeros_like(Y).index_copy_(0, q, Y)
+        return Y if q is None else torch.zeros_like(Y).index_copy_(-2, q, Y)
 
     amul = _coo_amul(Mi, Mj, Mx)
     X, rmax = _refine(solve_once, lambda X: B64 - amul(X), B64, steps)
-    return X, rmax, float(X.abs().max())
+    return X, rmax, _amax(X)
 
 
 def _lu_mf_solve_fused(a: Sprs, s, pinv: np.ndarray, mfp, Bm: np.ndarray,
@@ -796,18 +827,11 @@ def _lu_one_shot(a: Sprs, s, Bm: np.ndarray, tol: float, steps: int = 10,
     the host engine's exact partial pivoting. Returns (X [n, nrhs] f64,
     rmax, xmax) on acceptance, with the factor tree cached on the plan;
     None below `config.mf_min_n` or without a plan."""
-    from .errors import NoPivotError
-    from .factor.frontal_lu import build_lu_mf_plan, lu_mf
+    from .factor.frontal_lu import lu_mf
 
     if a.n < config.mf_min_n or getattr(s, "_static_rejected", False):
         return None
-    mfp = getattr(s, "_mf_lu_plan", "unset")
-    if isinstance(mfp, str):
-        try:
-            mfp = build_lu_mf_plan(a, s)
-        except (NoPivotError, ValueError):
-            mfp = None
-        s._mf_lu_plan = mfp
+    mfp = _lu_mf_plan(a, s)
     if mfp is None:
         return None
     out = lu_mf(a, s, mfp, tol, torch.device(device))
@@ -816,6 +840,22 @@ def _lu_one_shot(a: Sprs, s, Bm: np.ndarray, tol: float, steps: int = 10,
         return None
     s._lu_route = "device_mf"
     return _lu_mf_solve_fused(a, s, out[-1], mfp, Bm, steps)
+
+
+def _lu_mf_plan(a: Sprs, s):
+    """s's multifrontal LU plan, built at first use from a (its static
+    pivoting prep reads a's values); None when it does not apply."""
+    from .errors import NoPivotError
+    from .factor.frontal_lu import build_lu_mf_plan
+
+    mfp = getattr(s, "_mf_lu_plan", "unset")
+    if isinstance(mfp, str):
+        try:
+            mfp = build_lu_mf_plan(a, s)
+        except (NoPivotError, ValueError):
+            mfp = None
+        s._mf_lu_plan = mfp
+    return mfp
 
 
 def _host_lu(a: Sprs, s, tol: float) -> Nmrc:
@@ -979,22 +1019,31 @@ def _chol_one_shot(a: Sprs, s, Bm: np.ndarray, steps: int = 10,
     (`_chol_mf_solve_fused`). Returns (X [n, nrhs] f64, rmax, xmax) with
     the factor tree cached on the plan, or None below
     `config.mf_min_n` or when no multifrontal plan applies."""
-    from .factor.frontal import _chol_mf_factor, build_mf_plan
-    from .symbolic import _symperm_host
+    from .factor.frontal import _chol_mf_factor
 
     if a.n < config.mf_min_n:
         return None
-    mfp = getattr(s, "_mf_plan", "unset")
-    if isinstance(mfp, str):
-        c = _symperm_host(a, s.pinv) if s.pinv is not None else a
-        mfp = build_mf_plan(c, s)
-        s._mf_plan = mfp
+    mfp = _chol_mf_plan(a, s)
     if mfp is None:
         return None
     dev = _card(device)  # the factors' device
     _chol_mf_factor(_chol_values(a, s, mfp, dev)[0], mfp)
     s._chol_route = "device_mf"
     return _chol_mf_solve_fused(a, s, mfp, Bm, steps)
+
+
+def _chol_mf_plan(a: Sprs, s):
+    """s's multifrontal Cholesky plan, built at first use on a's pattern
+    (triu(PAP'), or A as stored for natural order: chol reads its triu
+    entries); None when it does not apply."""
+    from .factor.frontal import build_mf_plan
+    from .symbolic import _symperm_host
+
+    mfp = getattr(s, "_mf_plan", "unset")
+    if isinstance(mfp, str):
+        c = _symperm_host(a, s.pinv) if s.pinv is not None else a
+        mfp = s._mf_plan = build_mf_plan(c, s)
+    return mfp
 
 
 def _host_chol(a: Sprs, s) -> Nmrc:
@@ -1125,13 +1174,9 @@ def _qr_mf_try(a: Sprs, s: Symb, device):
     current values (refactored when the values or the device change), or
     None below `config.mf_min_n`, with `config.backend == "host"` or when
     the plan does not apply."""
-    from .factor.frontal_qr import _qr_mf_factor, build_qr_mf_plan
+    from .factor.frontal_qr import _qr_mf_factor
 
-    if a.n < config.mf_min_n or config.backend == "host":
-        return None
-    plan = getattr(s, "_mf_qr_plan", "unset")
-    if isinstance(plan, str):
-        plan = s._mf_qr_plan = build_qr_mf_plan(a, s)
+    plan = _qr_mf_plan(a, s)
     if plan is not None:
         dev = _card(device)
         # the cached tree holds A's values: sym reuse with refreshed values
@@ -1142,6 +1187,20 @@ def _qr_mf_try(a: Sprs, s: Symb, device):
             _qr_mf_factor(torch.as_tensor(np.asarray(a.x[:nz], np.float64),
                                           device=dev), plan)
             plan.__dict__["_cache_fp"] = key
+    return plan
+
+
+def _qr_mf_plan(a: Sprs, s: Symb):
+    """s's multifrontal QR plan, built at first use on a's pattern, or None
+    below `config.mf_min_n`, with `config.backend == "host"` or when the
+    plan does not apply."""
+    from .factor.frontal_qr import build_qr_mf_plan
+
+    if a.n < config.mf_min_n or config.backend == "host":
+        return None
+    plan = getattr(s, "_mf_qr_plan", "unset")
+    if isinstance(plan, str):
+        plan = s._mf_qr_plan = build_qr_mf_plan(a, s)
     return plan
 
 
@@ -1569,3 +1628,239 @@ def cholsol_ir(a: Sprs, b, order: int = 0, factor_dtype: str = "float32",
     out = x[:, 0].cpu().numpy()
     _writeback(b, out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Batched-values drivers: K systems of one sparsity pattern
+# ---------------------------------------------------------------------------
+
+
+def _vals_batch(a: Sprs, Ax, B, rows: int, what: str):
+    """The validated float64 (AxK [K, nnz(a)], Bm [K, rows]) of a
+    batched-values call; a B of [rows] values broadcasts to all K."""
+    nz = a.nnz()
+    AxK = np.asarray(Ax, dtype=np.float64)
+    if AxK.ndim != 2 or AxK.shape[1] != nz:
+        raise ValueError(f"Ax must be [K, nnz(a)] = [K, {nz}], got "
+                         f"{AxK.shape}")
+    K = AxK.shape[0]
+    Bm = np.asarray(B, dtype=np.float64)
+    if Bm.ndim == 1 and Bm.shape[0] == rows:
+        Bm = np.tile(Bm, (K, 1))
+    if Bm.shape != (K, rows):
+        raise ValueError(f"B must be [K, {what}] = [{K}, {rows}] or [{what}], "
+                         f"got {Bm.shape}")
+    return AxK, Bm
+
+
+def _instance(a: Sprs, AxK: np.ndarray, k: int) -> Sprs:
+    """a's pattern with instance k's values."""
+    nz = a.nnz()
+    return Sprs(nz, a.m, a.n, a.p, a.i[:nz], AxK[k])
+
+
+def _vals_redo(solve, a: Sprs, AxK, Bm, idx, out: np.ndarray,
+               s: Symb, route: str) -> np.ndarray:
+    """The per-instance tier: out[k] = solve(instance k, b_k) for k in idx
+    (the port's single-system driver), the rest of out kept;
+    `s._vals_route` = (route, the count re-solved). A
+    NotPositiveDefiniteError names every instance that raised it."""
+    from .errors import NotPositiveDefiniteError
+
+    s._vals_route = (route, len(idx))
+    bad = []
+    for k in idx:
+        try:
+            out[k] = solve(_instance(a, AxK, k), Bm[k].copy())
+        except NotPositiveDefiniteError:
+            bad.append(int(k))
+    if bad:
+        raise NotPositiveDefiniteError(
+            f"instances {bad} are not positive definite")
+    return out
+
+
+def _vals_mf(min_n: int) -> bool:
+    """Whether a batched-values call may take the device multifrontal
+    route (else every instance runs the single-system driver)."""
+    return min_n >= config.mf_min_n and config.backend != "host"
+
+
+def cholsol_vals(a: Sprs, Ax, B, order: int = 0, *,
+                 sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
+    """Batched-values SPD solve: K systems A_k x_k = b_k that share `a`'s
+    sparsity pattern and differ in values (chol semantics: the symmetrized
+    triu(P A_k P'), reference src/lib.rs:377-389).
+
+    Ax: [K, nnz(a)] value rows (a.x is ignored); B: [K, n], or [n] for all
+    K. Returns X [K, n] (float64 numpy). At or above `config.mf_min_n` one
+    multifrontal factorization and solve of all K instances on `device`
+    (a leading instance dimension through the fronts, the skeleton and
+    every SpTRSV sweep), then up to 4 keep-best f64 refinement steps per
+    instance; an instance whose smallest pivot is not positive or whose
+    residual misses 1e-10·max(1, max|b_k|, max|x_k|) is solved again by
+    `cholsol`. Below it, or with `config.backend == "host"`, every
+    instance runs `cholsol`. Raises NotPositiveDefiniteError naming every
+    instance that is not positive definite. `s._vals_route` reads
+    ("device_mf", instances re-solved) or ("per_instance", K). No
+    reference counterpart (the JAX package vmaps the same program)."""
+    from .factor.frontal import _chol_mf_values, _solve_mf_dev
+    from .symbolic import schol
+
+    n = a.n
+    if a.m != n:
+        raise ValueError(f"cholsol_vals needs a square matrix, got "
+                         f"{a.m}x{n}")
+    AxK, Bm = _vals_batch(a, Ax, B, n, "n")
+    K = AxK.shape[0]
+    a0 = _instance(a, AxK, 0)
+    s = sym if sym is not None else schol(a0, order)
+    solve = lambda ak, b: cholsol(ak, b, order, sym=s, device=device)
+    mfp = _chol_mf_plan(a0, s) if _vals_mf(n) else None
+    if mfp is None:
+        return _vals_redo(solve, a, AxK, Bm, range(K), np.empty((K, n)), s,
+                          "per_instance")
+    dev = _card(device)
+    perm, mxmap, Mi, Mj, p = _chol_oneshot_maps(a0, s, dev)
+    Cx = torch.as_tensor(AxK[:, perm], device=dev)
+    _, dmins, tree = _chol_mf_values(Cx, mfp)
+    B64 = torch.as_tensor(Bm[..., None], device=dev)
+    amul = _coo_amul(Mi, Mj, torch.as_tensor(AxK[:, mxmap], device=dev))
+    X, rmax = _refine(_permuted(lambda Z: _solve_mf_dev(mfp, Z, tree), p),
+                      lambda X: B64 - amul(X), B64, 4)
+    dmin = (torch.stack(dmins).amin(0) if dmins
+            else Cx.new_ones(K)).cpu().numpy()
+    out = _writable(X[..., 0].cpu().numpy())
+    scale = np.maximum(np.abs(Bm).max(axis=1),
+                       np.maximum(np.abs(out).max(axis=1), 1.0))
+    redo = np.nonzero(~(dmin > 0.0) | ~(rmax <= 1e-10 * scale))[0]
+    return _vals_redo(solve, a, AxK, Bm, redo, out, s, "device_mf")
+
+
+def _lu_vals_compose(plan, margins, bads, perms, tol: float):
+    """The host pass after a batched LU factorization (one readback of the
+    accept stats, one of the pivot perms): per instance its accept flag
+    (`lu_mf`'s rule: no zero pivot, margin + tol >= 1e-10), its composed
+    row permutation pin [K, n] and its inner eliminations, stacked [K, ns]
+    per nesting level in `_attach_inners` order. The integer compose runs
+    instance by instance, as in the JAX package."""
+    from .factor.frontal_lu import _compose_elim
+
+    mg = torch.stack(margins).amin(0)
+    bad = torch.stack(bads).any(0)
+    stats = torch.stack([mg, bad.to(mg.dtype)], -1).cpu().numpy()  # [K, 2]
+    perm_h = torch.cat(perms, -1).cpu().numpy()  # [K, total]
+    n = plan.n
+    ok = (stats[:, 1] == 0) & (stats[:, 0] + tol >= 1e-10)
+    pinK = np.empty((len(stats), n), dtype=np.int64)
+    inners = []
+    for k in range(len(stats)):
+        inners.append([])
+        elim, _ = _compose_elim(plan, perm_h[k], 0, inners[-1])
+        einv = np.empty(n, dtype=np.int64)
+        einv[elim] = np.arange(n)
+        pinK[k] = einv[plan.row_pinv] if plan.row_pinv is not None else einv
+    return ok, pinK, [np.stack(v) for v in zip(*inners)]
+
+
+def lusol_vals(a: Sprs, Ax, B, order: int = 1, tol: float = 1e-6, *,
+               sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
+    """Batched-values LU solve: K square systems that share `a`'s sparsity
+    pattern (lusol semantics, reference src/lib.rs:672-683).
+
+    Ax: [K, nnz(a)] value rows (a.x is ignored); B: [K, n], or [n] for all
+    K. Returns X [K, n] (float64 numpy). At or above `config.mf_min_n` the
+    pivoting multifrontal LU of all K instances on `device` (one plan,
+    built from instance 0's values; each instance pivots inside its own
+    fronts and dense skeleton), the host compose of each instance's pivot
+    perms, then the tree solves and up to 10 early-exit keep-best f64
+    refinement steps per instance (`_lu_refine_body`, as `lusol`'s
+    one-shot); an instance with a zero pivot, a pivot margin below the
+    accept rule or a residual over 1e-10·max(1, max|b_k|, max|x_k|) is
+    solved again by `lusol` with the caller's tol. Below it, or with
+    `config.backend == "host"`, every instance runs `lusol`.
+    `s._vals_route` reads ("device_mf", instances re-solved) or
+    ("per_instance", K). No reference counterpart."""
+    from .factor.frontal_lu import _attach_inners, _lu_mf_values
+    from .symbolic import sqr
+
+    n, nz = a.n, a.nnz()
+    if a.m != n:
+        raise ValueError(f"lusol_vals needs a square matrix, got {a.m}x{n}")
+    AxK, Bm = _vals_batch(a, Ax, B, n, "n")
+    K = AxK.shape[0]
+    a0 = _instance(a, AxK, 0)
+    s = sym if sym is not None else sqr(a0, order, False)
+    solve = lambda ak, b: lusol(ak, b, order, tol, sym=s, device=device)
+    plan = _lu_mf_plan(a0, s) if _vals_mf(n) else None
+    if plan is None:
+        return _vals_redo(solve, a, AxK, Bm, range(K), np.empty((K, n)), s,
+                          "per_instance")
+    dev = _card(device)
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=dev)
+    Ax_d = torch.as_tensor(AxK[:, plan.vperm] if plan.vperm is not None
+                           else AxK, device=dev)
+    _, _, margins, bads, cache, perms = _lu_mf_values(Ax_d, plan, float(tol))
+    ok, pinK, inners = _lu_vals_compose(plan, margins, bads, perms, tol)
+    cache, _ = _attach_inners(plan, cache, [ix(v) for v in inners])
+    Mi, Mj = device_cache(plan, "_fused_solve_pattern", dev, lambda: (
+        ix(a.i[:nz]), ix(col_ids(a.p, n))))
+    B64 = torch.as_tensor(Bm[..., None], device=dev)
+    X, rmax, xmax = _lu_refine_body(
+        plan, n, B64, cache, Mi, Mj, torch.as_tensor(AxK, device=dev),
+        ix(pinK), ix(s.q) if s.q is not None else None, 10)
+    out = _writable(X[..., 0].cpu().numpy())
+    scale = np.maximum(np.abs(Bm).max(axis=1), np.maximum(xmax, 1.0))
+    redo = np.nonzero(~(ok & (rmax <= 1e-10 * scale)))[0]
+    return _vals_redo(solve, a, AxK, Bm, redo, out, s, "device_mf")
+
+
+def qrsol_vals(a: Sprs, Ax, B, order: int = 2, *,
+               sym: Optional[Symb] = None, device="cuda") -> np.ndarray:
+    """Batched-values QR solve: K systems that share `a`'s sparsity
+    pattern, least squares for m >= n and minimum norm (the QR of A_k')
+    for m < n (qrsol semantics, reference src/lib.rs:927-956).
+
+    Ax: [K, nnz(a)] value rows (a.x is ignored); B: [K, m], or [m] for all
+    K. Returns X [K, n] (float64 numpy). `sym`: a `sqr(a, order, True)`
+    analysis when m >= n, `sqr(transpose(a), order, True)` when m < n. At
+    or above `config.mf_min_n` (A's n for least squares, its m for minimum
+    norm) the multifrontal QR of all K instances on `device` (f64 fronts
+    [K, F, rp, cp], one R sweep for all K), each instance held to
+    `qrsol`'s gate on its f64 result (max|A_k'(b_k - A_k x_k)| <= 1e-8
+    max(1, max|A_k'b_k|), or max|b_k - A_k x_k| <= 1e-8 max(1, max|b_k|);
+    NaN fails), an instance that misses it solved again by `qrsol`. Below
+    it, or with `config.backend == "host"`, every instance runs `qrsol`.
+    `s._vals_route` reads ("device_mf", instances re-solved) or
+    ("per_instance", K). No reference counterpart."""
+    from .factor.frontal_qr import _qr_mf_values, qrsol_mf_ls, qrsol_mf_mn
+    from .ops.plan import transpose_plan
+    from .symbolic import sqr
+
+    m, n = a.m, a.n
+    AxK, Bm = _vals_batch(a, Ax, B, m, "m")
+    K = AxK.shape[0]
+    ls = m >= n
+    a0 = _instance(a, AxK, 0)
+    fa = a0 if ls else ops.transpose(a0, device="cpu")  # the factored matrix
+    s = sym if sym is not None else sqr(fa, order, True)
+    solve = lambda ak, b: qrsol(ak, b, order, sym=s, device=device)
+    plan = _qr_mf_plan(fa, s)
+    if plan is None:
+        return _vals_redo(solve, a, AxK, Bm, range(K), np.empty((K, n)), s,
+                          "per_instance")
+    dev = _card(device)
+    Fx = torch.as_tensor(AxK if ls else AxK[:, transpose_plan(a0).perm],
+                         device=dev)
+    qs, Rx = _qr_mf_values(Fx, plan)
+    if ls:
+        xp, gmax, gscale = qrsol_mf_ls(fa, s, plan, Bm, (qs, Fx, Rx))
+        out = np.empty((K, n))
+        out[:, plan.q if plan.q is not None else np.arange(n)] = xp
+        good = gmax <= 1e-8 * gscale
+    else:
+        out, rmax = qrsol_mf_mn(fa, s, plan, Bm, (qs, Fx, Rx))
+        out = _writable(out)
+        good = rmax <= 1e-8 * np.maximum(1.0, np.abs(Bm).max(axis=1))
+    return _vals_redo(solve, a, AxK, Bm, np.nonzero(~good)[0], out, s,
+                      "device_mf")

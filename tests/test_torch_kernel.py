@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain torch versions: the SpTRSV
 sweep (csrc/sptrsv.cu), the streaming SpMM (csrc/spmm.cu) and the DIA SpMV
-(csrc/spmv_dia.cu); and the solvers that run the sweep (the single-RHS
-solves, lusol, cholsol, cholsol_serve, qrsol, and the batched and serving
-drivers cholsol_multi, lusol_multi, qrsol_multi, qrsol_serve and
-cholsol_ir) on the card against their CPU runs.
+(csrc/spmv_dia.cu), the sweep also over K instances' values at once; and
+the solvers that run the sweep (the single-RHS solves, lusol, cholsol,
+cholsol_serve, qrsol, the batched and serving drivers cholsol_multi,
+lusol_multi, qrsol_multi, qrsol_serve and cholsol_ir, and the
+batched-values drivers cholsol_vals, lusol_vals and qrsol_vals) on the card
+against their CPU runs.
 
 This file imports neither jax nor the JAX package (only the numpy test
 matrix of bench.py), so it also runs on a machine with a card and no JAX:
@@ -121,6 +123,39 @@ def test_kernel_matches_plain_on_card(case, kind, dtype, tol, B):
     assert sptrsv_multi.launches == before + 1
     assert got.shape == X.shape and got.is_contiguous()
     assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+@pytest.mark.parametrize("B", [1, 2, 128])
+@pytest.mark.parametrize("K", [1, 3, 16])
+@pytest.mark.parametrize("case", ["dense", "levels", "large"])
+def test_kernel_instances_match_plain_on_card(case, K, B, kind, dtype, tol):
+    """K instances' values [K, L] (each entry scaled by its own factor in
+    [0.9, 1.1]) in one launch, grid (B, K): against the plain version on
+    the same shapes and, per instance, against the kernel's one-instance
+    launch on that instance's values (its value streams and X found at
+    their instance offsets)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    t, plan = _sweep_case(case, kind)
+    rng = np.random.default_rng(K * 1000 + B)
+    x0 = np.asarray(t.x[: t.nnz()], np.float64)
+    tx = torch.as_tensor(x0 * rng.uniform(0.9, 1.1, (K, len(x0))),
+                         dtype=dtype, device="cuda")
+    X = torch.as_tensor(rng.standard_normal((K, t.n, B)), dtype=dtype,
+                        device="cuda")
+    before = sptrsv_multi.launches
+    got = sptrsv_multi(tx, X, plan, kind)
+    torch.cuda.synchronize()
+    assert sptrsv_multi.launches == before + 1
+    assert got.shape == X.shape and got.is_contiguous()
+    assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
+    for k in sorted({0, K // 2, K - 1}):
+        one = sptrsv_multi(tx[k].contiguous(), X[k], plan, kind)
+        assert _rel(got[k], one) < tol
 
 
 @pytest.mark.gpu
@@ -608,3 +643,61 @@ def test_qrsol_serve_available_on_card(branch):
         except ValueError:
             fits = False
     assert h.available == fits
+
+
+def _vals_run(driver, dev, a, AxK, B):
+    """One batched-values call on `dev`: (X, the route, the sweep kernel's
+    launches in the call)."""
+    before = sptrsv_multi.launches
+    if driver == "cholsol_vals":
+        s = rt.schol(a, 1)
+        X = rt.cholsol_vals(a, AxK, B, 1, sym=s, device=dev)
+    elif driver == "lusol_vals":
+        s = rt.sqr(a, 1, False)
+        X = rt.lusol_vals(a, AxK, B, 1, 1e-6, sym=s, device=dev)
+    else:
+        s = rt.sqr(a if a.m >= a.n else rt.transpose(a, device="cpu"), 2,
+                   True)
+        X = rt.qrsol_vals(a, AxK, B, 2, sym=s, device=dev)
+    assert isinstance(X, np.ndarray) and X.shape == (len(AxK), a.n)
+    return X, s._vals_route, sptrsv_multi.launches - before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("driver,case", [
+    ("cholsol_vals", "lap"), ("lusol_vals", "unsym"),
+    ("qrsol_vals", "ls"), ("qrsol_vals", "mn")])
+@pytest.mark.parametrize("mf_min_n", [100, 10**9])
+def test_vals_drivers_on_card(monkeypatch, driver, case, mf_min_n):
+    """The batched-values drivers (K = 4, values scaled per instance) on
+    the card agree with their CPU runs, on the same route; on the device
+    route every sweep is one launch for all K: the Cholesky solve's two
+    skeleton sweeps per refinement step (n = 400 has no dense tail), the
+    QR's one R sweep; the LU's dense skeleton runs none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+
+    monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
+    if case == "lap":
+        n, p, i, x = laplacian_5pt(20)
+        a = sprs_from_fields(n, n, p, i, x)
+    elif case == "unsym":
+        a = chip_smoke.make_matrix(20, 0)
+    else:
+        a, aw = _qr_case(grid=12)
+        a = a if case == "ls" else aw
+    K, nz = 4, a.nnz()
+    AxK = np.asarray(a.x[:nz]) * (1.0 + 0.1 * np.arange(K))[:, None]
+    B = np.random.default_rng(12).standard_normal((K, a.m))
+    card = _vals_run(driver, "cuda", a, AxK, B)
+    cpu = _vals_run(driver, "cpu", a, AxK, B)
+    assert card[1] == cpu[1] and cpu[2] == 0
+    if card[1][0] == "device_mf":
+        assert card[1][1] == 0
+        if driver == "cholsol_vals":  # 1 + up to 4 refinement solves
+            assert card[2] in (2, 4, 6, 8, 10)
+        else:
+            assert card[2] == (1 if driver == "qrsol_vals" else 0)
+    assert np.abs(card[0] - cpu[0]).max() <= 1e-9 * max(
+        1.0, np.abs(cpu[0]).max())

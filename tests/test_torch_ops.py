@@ -274,4 +274,5 @@ def test_default_device_covers_the_slice():
                      "lusol", "cholsol", "cholsol_serve", "chol", "lsolve",
                      "ltsolve", "usolve", "utsolve", "_tri_solve", "qr",
                      "qrsol", "qrsol_ls", "cholsol_multi", "lusol_multi",
-                     "qrsol_multi", "qrsol_serve", "cholsol_ir"}
+                     "qrsol_multi", "qrsol_serve", "cholsol_ir",
+                     "cholsol_vals", "lusol_vals", "qrsol_vals"}
