@@ -111,7 +111,28 @@ at full size and checks them:
      sweep (one launch for all K: cholsol_vals' factor and solve sweeps,
      qrsol_vals' R sweeps) replayed against its plain version with its
      time, its bound (K instances' values and X, the shared pattern once)
-     and K cuSPARSE triangular solves.
+     and K cuSPARSE triangular solves;
+ 13. the general operators and utils (main paths 16-17), each path with
+     its launch counts set to 0 just before it and read just after:
+     `spmv_general` on phase 6's A in float32 and float64 (the plan's
+     seconds; the SpMM kernel at B = 1 against its plain version, its
+     time beside its bound and `torch.mv` on CSR; the public call held to
+     the C++ engine's gaxpy, a 20-step dependent chain as nnz/s beside the
+     C++ engine's best of 3, a refresh of the values through `plan.perm`;
+     one kernel launch per call); `spmv_csc` on `A.to_device(float64)`
+     with its gradients against the C++ engine; `spgemm_general` on
+     rand_csc(2^18, 2^18, 1.3M) seeds 0 and 1 (pattern equal to the C++
+     engine's, values, run-to-run equality, the value pass beside the C++
+     multiply, cuSPARSE and its bound); the Gram chain
+     chain(A)'A * 2 + 0.5 I at n = 20,000 with 100k entries, float32 and
+     float64, "mxu" and "esc" (build seconds, wall per application beside
+     the host chain, device ops per application); and utils: one cholsol
+     on phase 8's Laplacian under `reset_metrics`, `save_factor` /
+     `load_factor` of its Cholesky factor and the loaded factor's solve
+     (the sweep kernel), `save_symbolic` / `load_symbolic` and cholsol with
+     the loaded analysis, `profile_trace` around an spmv_general call, and
+     `sanitize()` around one spmv_general call and one cholsol_serve
+     request.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -2205,6 +2226,465 @@ def phase_vals(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
     return by_path, sweeps, max_abs
 
 
+GEN_CHAIN = 20  # spmv_general's dependent chain (bench.py:624-662)
+GEN_SPGEMM_N, GEN_SPGEMM_NNZ = 1 << 18, 1_300_000  # bench.py:665-714
+GEN_OPCHAIN_N, GEN_OPCHAIN_NNZ = 20_000, 100_000  # bench.py:904-960
+GEN_OPCHAIN_ITERS = 8
+
+
+def general_spmv(a, np_dt, seed: int, device: str):
+    """spmv_general on A in one dtype: the plan's seconds, the kernel at
+    B = 1 against its plain version, its time beside its bound and
+    cuSPARSE (`torch.mv` on CSR); then the main path, with the launch
+    counts set to 0 just before it and read just after: the public
+    `spmv_general` once (held to the C++ engine's gaxpy), a GEN_CHAIN-step
+    dependent chain r / max|r| through `spmv_general_fn` (nnz/s beside
+    the C++ engine's best of 3) and one call with the values refreshed
+    through `plan.perm`. Returns (the shape's record, the largest kernel
+    difference, the path's launches, (plan, vals, x) for the utils part)."""
+    import torch
+
+    from rsparse_tpu_torch.ops.spmm_cuda import spmm_csr, spmm_plain
+    from rsparse_tpu_torch.ops.spmv_general import (mxu_spmv_plan,
+                                                    spmv_general,
+                                                    spmv_general_fn)
+    from rsparse_tpu_torch.symbolic import native
+
+    n, nnz = a.n, a.nnz()
+    dt = torch.float32 if np_dt == np.float32 else torch.float64
+    name = dname(dt)
+    tol = 1e-5 if name == "float32" else 1e-12
+    t0 = time.perf_counter()
+    plan = mxu_spmv_plan(a, np_dt)
+    t_plan = time.perf_counter() - t0
+    sp = plan.spmm
+    x_h = np.random.default_rng(seed + 30).standard_normal(n)
+    zeros = np.zeros(n)
+    r_host = native.gaxpy_host(n, n, a.p, a.i, a.x, x_h, zeros)
+    cpu_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.gaxpy_host(n, n, a.p, a.i, a.x, x_h, zeros)
+        cpu_s.append(time.perf_counter() - t0)
+    vals = torch.as_tensor(plan.vals, device=device)
+    vals_csc = torch.as_tensor(a.x[:nnz], dtype=dt, device=device)
+    x = torch.as_tensor(x_h, dtype=dt, device=device)
+    X1 = x[:, None]
+    got = spmm_csr(vals, X1, sp)
+    ref = spmm_plain(vals_csc, X1, sp)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, ref)
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (n, 1),
+          f"spmv_general {name}: bad kernel output")
+    check(rel <= NEW_TOL[name], f"spmv_general {name}: kernel disagrees with "
+          f"the plain version: {rel:.3e}")
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    A_csr = torch.sparse_csr_tensor(ix(sp.row_ptr), ix(sp.col_idx), vals,
+                                    size=(n, n))
+    _, lib_rel = rel_err(torch.mv(A_csr, x), got[:, 0])
+    del got, ref
+    ms = cuda_ms_cold(lambda: spmm_csr(vals, X1, sp), 20)
+    plain = cuda_ms_cold(lambda: spmm_plain(vals_csc, X1, sp), 5)
+    lib = cuda_ms_cold(lambda: torch.mv(A_csr, x), 20)
+    del A_csr, vals_csc
+    item = x.element_size()
+    b, by = bound_ms(nnz * (item + 4) + 4 * (n + 1) + 2 * n * item, 2 * nnz,
+                     name)
+    print(f"spmv_general {name} B=1: n={n} nnz={nnz} plan_s={t_plan:.3f} "
+          f"max_abs_err={err:.3e} rel_err={rel:.3e} kernel_ms={ms:.5f} "
+          f"plain_ms={plain:.5f} library_ms={lib:.5f} library_rel_diff="
+          f"{lib_rel:.3e} bound_ms={b:.5f} ({by}) bound_share={b / ms:.4f}",
+          flush=True)
+
+    # main path
+    f = spmv_general_fn(plan)
+    perm = torch.as_tensor(plan.perm, device=device)
+    new_x = 2.0 * np.asarray(a.x[:nnz]) - 0.5
+    new_host = native.gaxpy_host(n, n, a.p, a.i, new_x, x_h, zeros)
+    reset_counts()
+    r = spmv_general(a, x_h, plan, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur = x
+    for _ in range(GEN_CHAIN):
+        rr = f(vals, cur)
+        cur = rr / rr.abs().max()
+    checksum = float(cur.sum())
+    t_chain = (time.perf_counter() - t0) / GEN_CHAIN
+    fresh = torch.empty_like(vals)
+    fresh[perm] = torch.as_tensor(new_x, dtype=dt, device=device)
+    r2 = f(fresh, x)
+    torch.cuda.synchronize()
+    launches = read_counts()["spmm_stream"]
+    host_rel = float(np.abs(r.double().cpu().numpy() - r_host).max()) / max(
+        1.0, float(np.abs(r_host).max()))
+    new_rel = float(np.abs(r2.double().cpu().numpy() - new_host).max()) / max(
+        1.0, float(np.abs(new_host).max()))
+    print(f"spmv_general {name} main: host_rel_err={host_rel:.3e} "
+          f"refreshed_host_rel_err={new_rel:.3e} chain_step_s={t_chain:.6f} "
+          f"chain_nnz_per_s={nnz / t_chain:.4e} host_engine_best_s="
+          f"{min(cpu_s):.6f} host_engine_nnz_per_s={nnz / min(cpu_s):.4e} "
+          f"launches={launches}", flush=True)
+    check(tuple(r.shape) == (n,) and r.dtype == dt and host_rel <= tol,
+          f"spmv_general {name}: disagrees with the C++ engine: {host_rel:.3e}")
+    check(new_rel <= tol, f"spmv_general {name}: refreshed values disagree "
+          f"with the C++ engine: {new_rel:.3e}")
+    check(np.isfinite(checksum), f"spmv_general {name}: chain not finite")
+    check(launches == GEN_CHAIN + 2, f"spmv_general {name}: {launches} kernel "
+          f"launches, not one per call ({GEN_CHAIN + 2})")
+    rec = {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": b,
+           "bound_by": by}
+    return rec, err, launches, (plan, vals, x)
+
+
+def general_spmv_csc(a, seed: int, device: str) -> None:
+    """spmv_csc on `a.to_device(torch.float64)`: the forward result against
+    the C++ engine's gaxpy, x.grad against A'w (the C++ engine's gaxpy on
+    A') and a.x.grad against w[i] x[col], each to 1e-12 relative."""
+    import torch
+
+    from rsparse_tpu_torch import transpose
+    from rsparse_tpu_torch.ops.device import spmv_csc
+    from rsparse_tpu_torch.ops.plan import col_ids
+    from rsparse_tpu_torch.symbolic import native
+
+    n, nnz = a.n, a.nnz()
+    rng = np.random.default_rng(seed + 31)
+    x_h, w_h = rng.standard_normal(n), rng.standard_normal(n)
+    t0 = time.perf_counter()
+    d = a.to_device(torch.float64, device=device)
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    ax = d.x.clone().requires_grad_()
+    x = torch.as_tensor(x_h, device=device).requires_grad_()
+    r = spmv_csc(type(d)(d.p, d.i, ax, d.m, d.n), x)
+    (r * torch.as_tensor(w_h, device=device)).sum().backward()
+    torch.cuda.synchronize()
+    fwd_ms = cuda_ms(lambda: spmv_csc(d, x.detach()), 5)
+    at = transpose(a, device=device)
+    want_r = native.gaxpy_host(n, n, a.p, a.i, a.x, x_h, np.zeros(n))
+    want_gx = native.gaxpy_host(n, n, at.p, at.i, at.x, w_h, np.zeros(n))
+    want_gax = w_h[a.i[:nnz]] * x_h[col_ids(a.p, n)]
+    errs = []
+    for label, got, want in (("forward", r, want_r), ("x.grad", x.grad, want_gx),
+                             ("a.x.grad", ax.grad, want_gax)):
+        e = float(np.abs(got.detach().cpu().numpy() - want).max()) / max(
+            1.0, float(np.abs(want).max()))
+        errs.append(f"{label}_rel_err={e:.3e}")
+        check(e <= 1e-12, f"spmv_csc: {label} disagrees with the C++ engine: "
+              f"{e:.3e}")
+    print(f"spmv_csc float64: n={n} nnz={nnz} to_device_s={t_up:.4f} "
+          f"forward_ms={fwd_ms:.4f} " + " ".join(errs), flush=True)
+
+
+def general_spgemm(seed: int, device: str) -> dict:
+    """spgemm_general on rand_csc(2^18, 2^18, 1.3M) seeds 0 and 1 in
+    float32 and float64: the plan's seconds; the value pass (its device
+    time, and the wall of a 5-step dependent chain) against the C++
+    engine's multiply_host and cuSPARSE (torch.sparse.mm, CSR x CSR); C's
+    pattern equal to the C++ engine's (its rows sorted per column, the
+    canonical order) and its values to 1e-12 (float64) / 1e-5 (float32);
+    float32 and float64 the same from run to run; the bound from the
+    expansion's bytes. Returns the records by dtype."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs
+    from rsparse_tpu_torch.ops.plan import col_ids
+    from rsparse_tpu_torch.ops.spgemm_general import (mxu_spgemm_plan,
+                                                      spgemm_general,
+                                                      spgemm_general_fn)
+    from rsparse_tpu_torch.symbolic import native
+
+    n = GEN_SPGEMM_N
+    Ap, Ai, Ax = rand_csc(n, n, GEN_SPGEMM_NNZ, seed=0)
+    Bp, Bi, Bx = rand_csc(n, n, GEN_SPGEMM_NNZ, seed=1)
+    A, B = Sprs(len(Ax), n, n, Ap, Ai, Ax), Sprs(len(Bx), n, n, Bp, Bi, Bx)
+    cpp_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        Cp, Ci, Cx = native.multiply_host(n, n, Ap, Ai, Ax, n, Bp, Bi, Bx)
+        cpp_s.append(time.perf_counter() - t0)
+    order = np.lexsort((Ci, col_ids(Cp, n)))
+    Ci, Cx = Ci[order], Cx[order]
+    t0 = time.perf_counter()
+    plan = mxu_spgemm_plan(A, B)
+    t_plan = time.perf_counter() - t0
+    E, nnzc = len(plan.a_idx), plan.nnz
+    check(np.array_equal(plan.out_p, Cp) and np.array_equal(plan.out_i, Ci),
+          "spgemm_general: C's pattern differs from the C++ engine's")
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+    out = {}
+    for name in ("float32", "float64"):
+        dt = getattr(torch, name)
+        f = spgemm_general_fn(plan, name, device=device)
+        ax = torch.as_tensor(Ax, dtype=dt, device=device)
+        bx = torch.as_tensor(Bx, dtype=dt, device=device)
+        c = f(ax, bx)
+        same = all(torch.equal(c, f(ax, bx)) for _ in range(2))
+        rel = float(np.abs(c.double().cpu().numpy() - Cx).max()) / max(
+            1.0, float(np.abs(Cx).max()))
+        check(bool(torch.isfinite(c).all()) and tuple(c.shape) == (nnzc,),
+              f"spgemm_general {name}: bad output")
+        check(rel <= (1e-5 if name == "float32" else 1e-12),
+              f"spgemm_general {name}: values disagree with the C++ engine: "
+              f"{rel:.3e}")
+        check(same, f"spgemm_general {name}: results differ between runs")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur = ax
+        for _ in range(5):
+            cur = ax * (1.0 + 0.0 * f(cur, bx)[0])
+        checksum = float(f(cur, bx).sum())
+        wall = (time.perf_counter() - t0) / 6
+        check(np.isfinite(checksum), f"spgemm_general {name}: chain not finite")
+        ms = cuda_ms_cold(lambda: f(ax, bx), 5)
+        # cuSPARSE on the same product: CSC arrays read as CSR are the
+        # transposes, and CSR(B') x CSR(A') = CSR((AB)') = CSC(AB)
+        Bt = torch.sparse_csr_tensor(ix(Bp), ix(Bi), bx, size=(n, n))
+        At = torch.sparse_csr_tensor(ix(Ap), ix(Ai), ax, size=(n, n))
+        lib_nnz = int(torch.sparse.mm(Bt, At)._nnz())
+        lib = cuda_ms_cold(lambda: torch.sparse.mm(Bt, At), 3)
+        item = ax.element_size()
+        b, by = bound_ms(16 * E + 8 * nnzc + item * (len(Ax) + len(Bx) + nnzc),
+                         2 * E, name)
+        print(f"spgemm_general {name}: n={n} anz={len(Ax)} bnz={len(Bx)} "
+              f"products={E} nnzC={nnzc} plan_s={t_plan:.3f} host_rel_err="
+              f"{rel:.3e} run_to_run_equal={same} chain_wall_ms="
+              f"{wall * 1e3:.3f} value_pass_ms={ms:.4f} library_ms={lib:.4f} "
+              f"library_nnz={lib_nnz} host_engine_best_s={min(cpp_s):.4f} "
+              f"bound_ms={b:.4f} ({by}) bound_share={b / ms:.4f}", flush=True)
+        out[name] = {"ms": ms, "chain_wall_ms": wall * 1e3, "library_ms": lib,
+                     "host_engine_s": min(cpp_s), "bound_ms": b,
+                     "bound_by": by, "plan_s": t_plan}
+        del Bt, At, c
+        torch.cuda.empty_cache()
+    c = spgemm_general(A, B, plan, "float64", device=device)
+    check(np.array_equal(c.p, Cp) and np.array_equal(c.i, Ci)
+          and float(np.abs(c.x - Cx).max()) <= 1e-12 * max(
+              1.0, float(np.abs(Cx).max())),
+          "spgemm_general: the public call disagrees with the C++ engine")
+    return out
+
+
+def general_opchain(seed: int, device: str) -> dict:
+    """The Gram pipeline chain(A).transpose().multiply(A).scale(2.0)
+    .add(eye, beta=0.5) at n = 20,000 with 100k entries, float32 and
+    float64, multiply_kernel "mxu" and "esc": build seconds, the wall per
+    application over GEN_OPCHAIN_ITERS dependent applications against the
+    host chain of bench.py:923-935 (best of 3), the device ops per
+    application from a profile, and the values against the host chain's
+    (1e-12 float64, 1e-5 float32). Returns the records."""
+    import re
+
+    import torch
+
+    from rsparse_tpu_torch import Sprs
+    from rsparse_tpu_torch.ops import chain
+    from rsparse_tpu_torch.ops import plan as _plan
+    from rsparse_tpu_torch.symbolic import native
+
+    n = GEN_OPCHAIN_N
+    Ap, Ai, Ax = rand_csc(n, n, GEN_OPCHAIN_NNZ, seed=0)
+    A = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    eye = Sprs.eye(n)
+    tp = _plan.transpose_plan(A)
+
+    def host_chain(ax):
+        Cp, Ci, Cx = native.multiply_host(n, n, tp.out_p, tp.out_i,
+                                          ax[tp.perm], n, Ap, Ai, ax)
+        pl = _plan.add_plan(Sprs(len(Cx), n, n, Cp, Ci, Cx), eye)
+        r = np.zeros(pl.nnz)
+        np.add.at(r, pl.seg, np.concatenate([2.0 * Cx, 0.5 * eye.x[:n]]))
+        return pl, r
+
+    pl, want = host_chain(Ax.copy())
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_chain(Ax.copy())
+        host_s.append(time.perf_counter() - t0)
+    out = {}
+    for name in ("float32", "float64"):
+        for kernel in ("mxu", "esc"):
+            t0 = time.perf_counter()
+            e = chain(A).transpose().multiply(A).scale(2.0).add(eye, beta=0.5)
+            f = e.values_fn(name, kernel, device)
+            t_build = time.perf_counter() - t0
+            m_, n_, p_, i_ = e.pattern
+            check(np.array_equal(p_, pl.out_p) and np.array_equal(i_, pl.out_i),
+                  f"chain {name} {kernel}: pattern differs from the host chain")
+            ax = torch.as_tensor(Ax, device=device)
+            ex = torch.as_tensor(eye.x[:n], device=device)
+            got = f(ax, ex)
+            rel = float(np.abs(got.double().cpu().numpy() - want).max()) / max(
+                1.0, float(np.abs(want).max()))
+            check(rel <= (1e-5 if name == "float32" else 1e-12),
+                  f"chain {name} {kernel}: values disagree with the host "
+                  f"chain: {rel:.3e}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cur = ax
+            for _ in range(GEN_OPCHAIN_ITERS):
+                cur = ax * (1.0 + 0.0 * f(cur, ex)[0])
+            checksum = float(f(cur, ex).sum())
+            wall = (time.perf_counter() - t0) / (GEN_OPCHAIN_ITERS + 1)
+            check(np.isfinite(checksum), f"chain {name} {kernel}: not finite")
+            prof = device_profile(lambda: f(ax, ex), 3)
+            ops_m = re.search(r"device_ops_per_step=(\d+)", prof)
+            print(f"chain {name} {kernel}: n={n} nnz={A.nnz()} nnzC={len(want)} "
+                  f"build_s={t_build:.4f} wall_per_application_ms="
+                  f"{wall * 1e3:.3f} host_chain_best_ms={min(host_s) * 1e3:.3f} "
+                  f"host_rel_err={rel:.3e} profile: {prof}", flush=True)
+            out[f"{name}_{kernel}"] = {
+                "build_s": t_build, "wall_ms": wall * 1e3,
+                "host_ms": min(host_s) * 1e3,
+                "device_ops": int(ops_m.group(1)) if ops_m else None}
+    return out
+
+
+def general_utils(lap, lap_sym, spmv, seed: int, device: str) -> dict:
+    """The utils on the card: cholsol on phase 8's Laplacian and analysis
+    under reset_metrics (the JAX package's phases on route device_mf:
+    symbolic and oneshot); save_factor / load_factor of phase 8's Cholesky
+    factor, the loaded factor's solve held to cholsol's x (1e-12);
+    save_symbolic / load_symbolic, cholsol with the loaded analysis on
+    device_mf, the same x (1e-12); profile_trace around one spmv_general
+    call leaves a trace; sanitize() around one spmv_general call (bit-equal)
+    and one cholsol_serve request. Returns the sweep launches by path."""
+    import os
+    import tempfile
+
+    import torch
+
+    from rsparse_tpu_torch import (chol, cholsol, cholsol_serve, ipvec,
+                                   lsolve, ltsolve, pvec, utils)
+
+    n = lap.n
+    rng = np.random.default_rng(seed + 32)
+    b = rng.standard_normal(n)
+    by_path = {}
+    utils.reset_metrics()
+    reset_counts()
+    x = cholsol(lap, b.copy(), 1, sym=lap_sym, device=device)
+    by_path["cholsol_metrics"] = read_counts()["sptrsv_sweep"]
+    met = utils.get_metrics()
+    print("utils metrics (one cholsol): " + " ".join(
+        f"{k}: calls={v['calls']} s={v['seconds']:.4f} work={v['work']} "
+        f"work_per_s={v['work_per_s'] if v['work_per_s'] is None else format(v['work_per_s'], '.4e')}"
+        for k, v in sorted(met.items())), flush=True)
+    check(lap_sym._chol_route == "device_mf" and set(met) == {
+        "cholsol.symbolic", "cholsol.oneshot"},
+        f"utils: cholsol recorded {sorted(met)} on route {lap_sym._chol_route}")
+    scale = max(1.0, float(np.abs(x).max()))
+    with tempfile.TemporaryDirectory() as tmp:
+        nm = chol(lap, lap_sym, device=device)
+        path = os.path.join(tmp, "chol.npz")
+        t0 = time.perf_counter()
+        utils.save_factor(nm, path)
+        t1 = time.perf_counter()
+        nm2 = utils.load_factor(path)
+        t2 = time.perf_counter()
+        check(nm2.l.nnz() == nm.l.nnz() and np.array_equal(nm2.l.x, nm.l.x[
+            : nm.l.nnz()]) and np.array_equal(nm2.l.i, nm.l.i[: nm.l.nnz()]),
+            "utils: the loaded Cholesky factor differs from the saved one")
+        reset_counts()
+        xx = np.zeros(n)
+        ipvec(n, lap_sym.pinv, b, xx)
+        y = ltsolve(nm2.l, lsolve(nm2.l, xx, device=device), device=device)
+        xl = np.zeros(n)
+        pvec(n, lap_sym.pinv, np.asarray(y), xl)
+        by_path["load_factor_solve"] = read_counts()["sptrsv_sweep"]
+        t3 = time.perf_counter()
+        rel_f = float(np.abs(xl - x).max()) / scale
+        print(f"utils factor checkpoint: lnz={nm.l.nnz()} file_bytes="
+              f"{os.path.getsize(path)} save_s={t1 - t0:.4f} load_s="
+              f"{t2 - t1:.4f} solve_s={t3 - t2:.4f} rel_diff_to_cholsol="
+              f"{rel_f:.3e} sweep_launches={by_path['load_factor_solve']}",
+              flush=True)
+        check(rel_f <= 1e-12, f"utils: the loaded factor's solve differs from "
+              f"cholsol's x by {rel_f:.3e}")
+        check(by_path["load_factor_solve"] >= 2,
+              "utils: the loaded factor's solve did not launch the sweep")
+        spath = os.path.join(tmp, "symb.npz")
+        utils.save_symbolic(lap_sym, spath)
+        s2 = utils.load_symbolic(spath)
+        t0 = time.perf_counter()
+        x2 = cholsol(lap, b.copy(), 1, sym=s2, device=device)
+        t_cold = time.perf_counter() - t0
+        rel_s = float(np.abs(x2 - x).max()) / scale
+        print(f"utils symbolic checkpoint: route={s2._chol_route} "
+              f"cold_cholsol_s={t_cold:.4f} rel_diff_to_cholsol={rel_s:.3e}",
+              flush=True)
+        check(s2._chol_route == "device_mf" and rel_s <= 1e-12,
+              f"utils: cholsol with the loaded analysis: route "
+              f"{s2._chol_route}, difference {rel_s:.3e}")
+        from rsparse_tpu_torch.ops.spmv_general import spmv_general_fn
+
+        plan, vals, xv = spmv
+        f = spmv_general_fn(plan)
+        want = f(vals, xv)
+        tdir = os.path.join(tmp, "trace")
+        with utils.profile_trace(tdir):
+            f(vals, xv)
+            torch.cuda.synchronize()
+        traces = [os.path.getsize(os.path.join(tdir, t))
+                  for t in os.listdir(tdir)] if os.path.isdir(tdir) else []
+        print(f"utils profile_trace: files={len(traces)} bytes={traces}",
+              flush=True)
+        check(bool(traces) and min(traces) > 0,
+              "utils: profile_trace left no trace file")
+    h = cholsol_serve(lap, 1, sym=lap_sym, device=device)
+    B = torch.as_tensor(rng.standard_normal((n, NRHS)), device=device)
+    Y = h(B)
+    Y_again = h(B)
+    with utils.sanitize():
+        got = f(vals, xv)
+        Ys = h(B)
+        torch.cuda.synchronize()
+    repeat = torch.equal(Y, Y_again)
+    spread = float((Y - Y_again).abs().max())
+    diff = float((Ys - Y).abs().max()) / max(1.0, float(Y.abs().max()))
+    print(f"utils sanitize: spmv_general bit_equal={torch.equal(got, want)} "
+          f"cholsol_serve bit_equal={torch.equal(Ys, Y)} rel_diff={diff:.3e} "
+          f"unsanitized_repeat_bit_equal={repeat} repeat_max_diff={spread:.3e}",
+          flush=True)
+    check(torch.equal(got, want), "utils: spmv_general differs under sanitize")
+    # the sweep's float atomics may order a sum differently from run to
+    # run: bit-equal is asked of sanitize wherever a repeat run is
+    check(torch.equal(Ys, Y) if repeat else diff <= 1e-12,
+          f"utils: cholsol_serve differs under sanitize ({diff:.3e})")
+    return by_path
+
+
+def phase_general(lap, lap_sym, seed: int, device: str = "cuda"):
+    """Phase 13: the general operators and utils at full width. Returns
+    (the SpMM launches of spmv_general's path, its B = 1 records by
+    dtype, the sweep launches by path, spgemm and chain records, the
+    largest kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs
+
+    t0 = time.perf_counter()
+    n = SPMM_N
+    Ap, Ai, Ax = rand_csc(n, n, SPMM_NNZ, seed=0)  # phase 6's A
+    a = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    recs, launches, max_abs = {}, 0, 0.0
+    for np_dt in (np.float32, np.float64):
+        rec, err, k, spmv = general_spmv(a, np_dt, seed, device)
+        recs[dname(torch.float32 if np_dt == np.float32 else torch.float64)] = rec
+        launches, max_abs = launches + k, max(max_abs, err)
+    general_spmv_csc(a, seed, device)
+    spgemm = general_spgemm(seed, device)
+    opchain = general_opchain(seed, device)
+    sweeps = general_utils(lap, lap_sym, spmv, seed, device)
+    del spmv
+    torch.cuda.empty_cache()
+    print(f"general: phase_s={time.perf_counter() - t0:.1f} spmv_general "
+          f"launches={launches} sweep_launches={sweeps}", flush=True)
+    return launches, recs, sweeps, spgemm, opchain, max_abs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2256,6 +2736,8 @@ def main(argv=None) -> int:
             a, lu_sym, lap, lap_sym, qr, args.seed)
         vals_paths, vals_sweeps, vals_err = phase_vals(
             a, lu_sym, lap, lap_sym, qr, args.seed)
+        (general_launches, spmv_general_recs, general_sweeps, spgemm,
+         opchain, general_err) = phase_general(lap, lap_sym, args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2266,7 +2748,8 @@ def main(argv=None) -> int:
         library_ms=t["library_ms"])
     by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
                "cholsol": cholsol_launches, "lusol": lusol_launches,
-               "qrsol": qr_launches, **multi_paths, **vals_paths}
+               "qrsol": qr_launches, **multi_paths, **vals_paths,
+               **general_sweeps}
     print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
           f"sweep: {kind2}", flush=True)
     sweep = entry("sptrsv_sweep", "sptrsv.cu",
@@ -2278,10 +2761,18 @@ def main(argv=None) -> int:
     sweep["qr_r_sweeps"] = r_sweeps
     sweep["multi_sweeps"] = multi_sweeps
     sweep["vals_sweeps"] = vals_sweeps
+    spmm_paths = {"gaxpy_multi": spmm_counts["spmm_stream"],
+                  "spmv_general": general_launches}
+    spmm_entry = entry("spmm_stream", "spmm.cu",
+                       "rsparse_tpu/ops/spmm_pallas.py:105",
+                       sum(spmm_paths.values()), max(spmm_err, general_err),
+                       spmm[("float64", NRHS)])
+    spmm_entry["launches_by_path"] = spmm_paths
+    spmm_entry["spmv_general"] = spmv_general_recs
+    print(f"general: spgemm_general {spgemm}; chain {opchain}", flush=True)
     print(json.dumps({"kernels": [
         sweep,
-        entry("spmm_stream", "spmm.cu", "rsparse_tpu/ops/spmm_pallas.py:105",
-              spmm_counts["spmm_stream"], spmm_err, spmm[("float64", NRHS)]),
+        spmm_entry,
         entry("spmv_dia", "spmv_dia.cu", "rsparse_tpu/ops/spmv.py:194",
               dia_counts["spmv_dia"], dia_err, dia["float32"]),
     ]}))

@@ -6,17 +6,21 @@ It imports torch and numpy, never jax or rsparse_tpu.
 
 Ported so far (the `lusol_serve` slice, the L2 operator slice, the
 direct solvers `lusol`/`cholsol`/`qrsol`, the batched and serving
-drivers, and the batched-values drivers):
-  - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), and
+drivers, the batched-values drivers, the general operators and `utils`):
+  - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), the
+    device view `CSCDevice` (`Sprs.to_device`/`from_device`), and
     `convert` to build them from plain numpy fields.
   - L2' ops: `add`, `multiply`, `transpose`, `gaxpy`, `norm`, `scpmat`,
     `scxmat`, `permute`, `symperm`, `fkeep`, `sprs_print`, `ipvec`/`pvec`/
     `pinvert` and the `Sprs` operator overloads (host plans in `ops.plan`,
     torch value passes in `ops.device`); `gaxpy_multi` on the streaming
     SpMM (`ops.spmm_cuda`); the DIA SpMV and `spgemm_dia` (`ops.spmv`); the
-    level-scheduled SpTRSV sweep (`ops.sptrsv_cuda`). The three kernels
-    are hand-written CUDA (`csrc/`), each with a plain torch version for
-    the CPU.
+    level-scheduled SpTRSV sweep (`ops.sptrsv_cuda`); `ops.device.spmv_csc`
+    on a `CSCDevice` (autograd through it), the general SpMV on the SpMM
+    kernel (`ops.spmv_general`), the deterministic ESC SpGEMM
+    (`ops.spgemm_general`) and device-resident op pipelines (`ops.chain`).
+    The three kernels are hand-written CUDA (`csrc/`), each with a plain
+    torch version for the CPU.
   - L3' symbolic: `sqr`/`schol`/AMD/etree/postorder on the native C++
     engine, compiled at first use from the port's own copy of its source
     (`native/rsymbolic.cpp`).
@@ -43,13 +47,16 @@ drivers, and the batched-values drivers):
     `cholsol_vals`, `lusol_vals` and `qrsol_vals` (K systems of one
     pattern: a leading instance dimension through the multifrontal
     factorizations, their solves and the SpTRSV sweep).
+  - Aux (`utils`): the phase-metrics registry that `lusol`/`cholsol` fill,
+    `profile_trace`, the kernels' `sanitize` mode, and `.npz` checkpoints
+    of analyses and factors, interchangeable with the JAX package's.
 
 The device-facing entry points take an explicit `device` argument, which
 defaults to the card ("cuda").
 """
 
 from .config import config
-from .data import Sprs, Trpl, Symb, Nmrc
+from .data import Sprs, Trpl, Symb, Nmrc, CSCDevice
 from .errors import RsparseError, NotPositiveDefiniteError, NoPivotError
 from .ops import (
     add,
@@ -97,10 +104,11 @@ from .solve import (
 from .symbolic import schol, sqr
 from .factor import chol, lu, qr
 from .convert import sprs_from_fields, symb_from_fields
+from . import utils
 
 __all__ = [
     "config",
-    "Sprs", "Trpl", "Symb", "Nmrc",
+    "Sprs", "Trpl", "Symb", "Nmrc", "CSCDevice",
     "RsparseError", "NotPositiveDefiniteError", "NoPivotError",
     "add", "multiply", "transpose", "gaxpy", "gaxpy_multi", "norm",
     "scpmat", "scxmat", "permute", "symperm", "ipvec", "pvec", "pinvert",

@@ -6,7 +6,8 @@ reference containers (reference: src/data.rs:194-208 for `Sprs`,
 src/data.rs:877-889 for `Trpl`). Device work reads these buffers through
 torch tensors made by the numeric layers; the factorizations return their
 values as numpy arrays too (`spgemm_dia` may leave C's values on a device
-when asked to).
+when asked to). `CSCDevice` is the immutable tensor view of a `Sprs` on one
+device (`Sprs.to_device` / `Sprs.from_device`).
 
 Behavioural parity notes (each with the reference location):
   - `from_vec` column-scans a dense matrix dropping explicit zeros
@@ -30,7 +31,7 @@ import numpy as np
 
 from .config import config
 
-__all__ = ["Sprs", "Trpl", "Symb", "Nmrc", "cumsum"]
+__all__ = ["Sprs", "Trpl", "Symb", "Nmrc", "CSCDevice", "cumsum"]
 
 
 def _f_dtype():
@@ -47,6 +48,20 @@ def cumsum(p: np.ndarray, c: np.ndarray, n: int) -> int:
     np.cumsum(c[:n], out=p[1 : n + 1])
     c[:n] = p[:n]
     return nz
+
+
+@dataclasses.dataclass(frozen=True)
+class CSCDevice:
+    """Immutable CSC view on one device: int64 tensors `p` [n+1] and `i`
+    [nnz], the value tensor `x` [nnz], and the dimensions `m`, `n` as ints.
+
+    `ops.device.spmv_csc` consumes it, and autograd flows through `x`."""
+
+    p: object  # torch int64 [n+1]
+    i: object  # torch int64 [nnz]
+    x: object  # torch float [nnz]
+    m: int
+    n: int
 
 
 class Sprs:
@@ -203,6 +218,38 @@ class Sprs:
             lo, hi = int(self.p[j]), int(self.p[j + 1])
             r[self.i[lo:hi], j] = self.x[lo:hi]
         return r
+
+    # -- device handoff ------------------------------------------------------
+
+    def to_device(self, dtype=None, device="cuda") -> CSCDevice:
+        """The first nnz entries as a `CSCDevice` on `device`: int64 indices,
+        values in `dtype` (a torch or numpy dtype; default `config.dtype`)."""
+        import torch
+
+        dt = dtype if dtype is not None else _f_dtype()
+        if not isinstance(dt, torch.dtype):
+            dt = torch.from_numpy(np.zeros(0, np.dtype(dt))).dtype
+        nnz = self.nnz()
+        return CSCDevice(
+            p=torch.as_tensor(self.p[: self.n + 1], dtype=torch.int64, device=device),
+            i=torch.as_tensor(self.i[:nnz], dtype=torch.int64, device=device),
+            x=torch.as_tensor(self.x[:nnz], dtype=dt, device=device),
+            m=self.m,
+            n=self.n,
+        )
+
+    @classmethod
+    def from_device(cls, d: CSCDevice) -> "Sprs":
+        """A host `Sprs` of a `CSCDevice` (values in `config.dtype`, as the
+        constructor stores them)."""
+        return cls(
+            nzmax=int(d.i.shape[0]),
+            m=d.m,
+            n=d.n,
+            p=d.p.detach().cpu().numpy().astype(np.int64),
+            i=d.i.detach().cpu().numpy().astype(np.int64),
+            x=d.x.detach().cpu().numpy(),
+        )
 
     # -- IO (src/data.rs:414-517) -------------------------------------------
 

@@ -1,6 +1,7 @@
 """L2 sparse primitive ops: add, multiply (SpGEMM), transpose, gaxpy,
 gaxpy_multi, norm, scalar ops, permute/symperm, ipvec/pvec, fkeep,
-sprs_print.
+sprs_print, and `chain` (an op pipeline's value passes back to back on one
+device).
 
 Same names and semantics as the reference crate root (src/lib.rs) and the
 JAX package's `rsparse_tpu.ops`. Each op pairs a host plan (`ops.plan`,
@@ -42,6 +43,8 @@ __all__ = [
     "pinvert",
     "fkeep",
     "sprs_print",
+    "chain",
+    "ChainExpr",
 ]
 
 
@@ -287,3 +290,6 @@ def sprs_print(a: Sprs, brief: bool = False, *, device="cuda") -> None:
             if brief and q > 20:
                 print("  ...")
                 return
+
+
+from .chain import ChainExpr, chain  # noqa: E402  (device op chaining)

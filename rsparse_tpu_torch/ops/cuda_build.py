@@ -7,10 +7,18 @@ to a temporary name and moved into place, then loaded with ctypes. Nothing
 is built at import time: a kernel module calls `load` at its first launch,
 and `compile_all` builds several sources at once, one nvcc process each,
 all started together.
+
+`sanitize()` (exported as `utils.sanitize`) is the kernels' debugging mode:
+inside it each kernel wrapper range-checks the index streams its kernel will
+read, on the host, before the launch (`check_index`, `check_pointers`), and
+synchronizes after it (`synchronize`), so that an asynchronous CUDA error
+raises at the launch that caused it, naming the kernel.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -19,6 +27,8 @@ import shutil
 import subprocess
 import time
 from typing import Callable, Dict, Iterable
+
+import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.normpath(os.path.join(_HERE, "..", "csrc"))
@@ -104,3 +114,60 @@ def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
         declare(lib)
         _LIBS[name] = lib
     return lib
+
+
+_SANITIZE = contextvars.ContextVar("rsparse_tpu_torch_sanitize", default=False)
+
+
+@contextlib.contextmanager
+def sanitize():
+    """Kernel launches inside check their index streams first and
+    synchronize after (see the module docstring)."""
+    token = _SANITIZE.set(True)
+    try:
+        yield
+    finally:
+        _SANITIZE.reset(token)
+
+
+def sanitizing() -> bool:
+    """Whether the caller runs inside `sanitize()`."""
+    return _SANITIZE.get()
+
+
+def _host(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy() if hasattr(t, "detach") else t,
+                      np.int64)
+
+
+def check_index(kernel: str, name: str, t, hi: int, lo: int = 0) -> None:
+    """Raise IndexError unless every value of stream `t` lies in [lo, hi)."""
+    v = _host(t)
+    bad = np.flatnonzero((v < lo) | (v >= hi))
+    if len(bad):
+        k = int(bad[0])
+        raise IndexError(f"{kernel} kernel: {name}[{k}] = {int(v[k])} outside "
+                         f"[{lo}, {hi}) ({len(bad)} entries)")
+
+
+def check_pointers(kernel: str, name: str, t, total: int) -> None:
+    """Raise IndexError unless pointer stream `t` starts at 0, never
+    decreases and ends at `total`."""
+    v = _host(t)
+    if len(v) == 0 or v[0] != 0 or v[-1] != total:
+        raise IndexError(f"{kernel} kernel: {name} must run from 0 to {total}")
+    down = np.flatnonzero(np.diff(v) < 0)
+    if len(down):
+        k = int(down[0])
+        raise IndexError(f"{kernel} kernel: {name} decreases at {k + 1} "
+                         f"({int(v[k])} -> {int(v[k + 1])})")
+
+
+def synchronize(kernel: str, device) -> None:
+    """Wait for the device; an error the kernel left raises naming it."""
+    import torch
+
+    try:
+        torch.cuda.synchronize(device)
+    except RuntimeError as e:
+        raise RuntimeError(f"{kernel} kernel failed on {device}: {e}") from e

@@ -44,6 +44,21 @@ def norm1(ax, cols, n: int) -> torch.Tensor:
     return sums.max() if n > 0 else a.new_zeros(())
 
 
+def spmv_csc(a, x, y=None) -> torch.Tensor:
+    """r = A@x (+ y) for a `data.CSCDevice` a, on its device.
+
+    Each entry's column comes from the pointer array by a searchsorted, and
+    the products are summed into their rows by `index_add`, so the result
+    carries autograd gradients for x, y and a.x. Reference semantics:
+    gaxpy, src/lib.rs:411-421.
+    """
+    e = torch.arange(a.i.shape[0], device=a.p.device)
+    cols = torch.searchsorted(a.p, e, right=True) - 1
+    vals = a.x * x[cols]
+    r = vals.new_zeros(a.m).index_add(0, a.i, vals)
+    return r if y is None else r + y
+
+
 def scpmat_values(alpha: float, ax) -> torch.Tensor:
     return ax + alpha
 

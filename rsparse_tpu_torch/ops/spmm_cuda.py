@@ -154,6 +154,12 @@ def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor,
     if cfg["tiles"] > 65535:
         raise ValueError(f"B = {B} is too wide for the kernel's grid")
     lib = build()
+    sanitize = cuda_build.sanitizing()
+    if sanitize:
+        if st["row_ptr"].numel() != m + 1:
+            raise IndexError(f"SpMM kernel: row_ptr must hold {m + 1} pointers")
+        cuda_build.check_pointers("SpMM", "row_ptr", st["row_ptr"], plan.nnz)
+        cuda_build.check_index("SpMM", "col_idx", st["col_idx"], plan.n)
     fn = lib.spmm_csr_f32 if X.dtype == torch.float32 else lib.spmm_csr_f64
     dev = X.device
     rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
@@ -164,6 +170,8 @@ def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"SpMM kernel launch failed (cudaError {rc})")
     spmm_csr.launches += 1
+    if sanitize:
+        cuda_build.synchronize("SpMM", dev)
     return R
 
 

@@ -243,6 +243,11 @@ def dia_spmv(dia: torch.Tensor, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
     stream = streams_dia(plan, x.element_size(),
                          cuda_build.l2_bytes(str(x.device)))
     lib = build()
+    sanitize = cuda_build.sanitizing()
+    if sanitize:  # ascending diagonals that each meet the matrix
+        cuda_build.check_index("DIA SpMV", "offsets", off, plan.m, 1 - plan.n)
+        if any(b <= a for a, b in zip(plan.offsets, plan.offsets[1:])):
+            raise IndexError("DIA SpMV kernel: offsets must ascend")
     fn = lib.spmv_dia_f32 if x.dtype == torch.float32 else lib.spmv_dia_f64
     dev = x.device
     rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
@@ -254,6 +259,8 @@ def dia_spmv(dia: torch.Tensor, x: torch.Tensor, plan: DiaPlan) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"DIA SpMV kernel launch failed (cudaError {rc})")
     dia_spmv.launches += 1
+    if sanitize:
+        cuda_build.synchronize("DIA SpMV", dev)
     return r
 
 

@@ -354,6 +354,23 @@ def _values(tx: torch.Tensor, ks: dict) -> list:
     return vals
 
 
+def _sanitize_streams(ks: dict, n: int, L: int) -> None:
+    """`cuda_build.sanitize`'s checks of the kernel streams, on the host:
+    level pointers, columns and rows < n, value positions < L."""
+    name = "SpTRSV"
+    lvl = ks["lvl"].cpu()
+    cuda_build.check_pointers(name, "column offsets", lvl[:, 0], ks["ncols"])
+    cuda_build.check_pointers(name, "entry offsets", lvl[:, 1], ks["nents"])
+    for key in ("cid", "esrc", "edst") + (("dcol",) if ks["k"] else ()):
+        cuda_build.check_index(name, key, ks[key], n)
+    for key in ("epos", "ediag", "cdiag") + (
+            ("tri_pos", "ddiag") if ks["k"] else ()):
+        cuda_build.check_index(name, key, ks[key], L)
+    if ks["k"]:
+        cuda_build.check_index(name, "pan_slot", ks["pan_slot"],
+                               ks["pan_total"])
+
+
 def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
     """One kernel launch, grid (B, K). Returns X solved: in the shared
     variant as the transposed view of a [(K,) B, n] buffer."""
@@ -372,6 +389,9 @@ def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
         if count >= 2**31:
             raise ValueError(f"{what} too large for the kernel's 32-bit index")
     lib = build()
+    sanitize = cuda_build.sanitizing()
+    if sanitize:
+        _sanitize_streams(ks, plan.n, tx.shape[-1])
     keep = _values(tx, ks)
     args = _Args(lvl=ks["lvl"].data_ptr(), cid=ks["cid"].data_ptr(),
                  dv=keep[1].data_ptr(), esrc=ks["esrc"].data_ptr(),
@@ -399,6 +419,8 @@ def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
     if rc != 0:
         raise RuntimeError(f"SpTRSV kernel launch failed (cudaError {rc})")
     sptrsv_multi.launches += 1
+    if sanitize:
+        cuda_build.synchronize("SpTRSV", dev)
     return x.transpose(-1, -2) if cfg["shared"] else x
 
 

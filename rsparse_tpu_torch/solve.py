@@ -55,6 +55,7 @@ from .factor import _card, _values_fp, device_values
 from .ops.plan import col_ids, device_cache
 from .ops.sptrsv_cuda import sptrsv_multi
 from .symbolic import native
+from .utils.profiling import phase_timer
 
 __all__ = [
     "TriPlan", "DenseSplit", "tri_plan",
@@ -896,30 +897,34 @@ def lusol(a: Sprs, b, order: int = 1, tol: float = 1e-6,
     from .symbolic import sqr
 
     n = a.n
-    s = sym if sym is not None else sqr(a, order, False)
+    with phase_timer("lusol.symbolic", nnz=a.nnz()):
+        s = sym if sym is not None else sqr(a, order, False)
     bb = np.asarray(b, dtype=np.float64)
-    nm = None
+    shot = None
     if config.backend != "host":
-        shot = _lu_one_shot(a, s, bb[:, None], tol, device=device)
+        with phase_timer("lusol.oneshot", nnz=a.nnz()):
+            shot = _lu_one_shot(a, s, bb[:, None], tol, device=device)
         if shot is not None:
             X, rmax, xmax = shot
             if _refined(rmax, bb, xmax):
                 out = _writable(X[:, 0])
                 _writeback(b, out)
                 return out
-            # growth or conditioning the pivot margin did not catch
+    with phase_timer("lusol.factor", nnz=a.nnz()):
+        if shot is not None:  # growth or conditioning the pivot margin missed
             nm = _host_lu(a, s, tol)
             s._lu_route = "host_exact"
-    if nm is None:
-        nm = lu(a, s, tol, device=device)
-    x = np.zeros(n, dtype=np.float64)
-    ops.ipvec(n, nm.pinv, bb, x)  # x = P*b
-    x = _tri_solve(nm.l, x, 0, device=device,
-                   tx=device_values(nm, "l", device))  # x = L\x
-    x = _tri_solve(nm.u, x, 1, device=device,
-                   tx=device_values(nm, "u", device))  # x = U\x
-    out = np.zeros(n, dtype=np.float64)
-    ops.ipvec(n, s.q, x, out)  # b = Q*x
+        else:
+            nm = lu(a, s, tol, device=device)
+    with phase_timer("lusol.solve", nnz=s.lnz + s.unz):
+        x = np.zeros(n, dtype=np.float64)
+        ops.ipvec(n, nm.pinv, bb, x)  # x = P*b
+        x = _tri_solve(nm.l, x, 0, device=device,
+                       tx=device_values(nm, "l", device))  # x = L\x
+        x = _tri_solve(nm.u, x, 1, device=device,
+                       tx=device_values(nm, "u", device))  # x = U\x
+        out = np.zeros(n, dtype=np.float64)
+        ops.ipvec(n, s.q, x, out)  # b = Q*x
     _writeback(b, out)
     return out
 
@@ -1084,29 +1089,33 @@ def cholsol(a: Sprs, b, order: int = 0, *, sym: Optional[Symb] = None,
     from .symbolic import schol
 
     n = a.n
-    s = sym if sym is not None else schol(a, order)
+    with phase_timer("cholsol.symbolic", nnz=a.nnz()):
+        s = sym if sym is not None else schol(a, order)
     bb = np.asarray(b, dtype=np.float64)
-    nm = None
+    shot = None
     if config.backend != "host":
-        shot = _chol_one_shot(a, s, bb[:, None], device=device)
+        with phase_timer("cholsol.oneshot", nnz=s.lnz):
+            shot = _chol_one_shot(a, s, bb[:, None], device=device)
         if shot is not None:
             X, rmax, xmax = shot
             if _refined(rmax, bb, xmax):
                 out = _writable(X[:, 0])
                 _writeback(b, out)
                 return out
-            # the device tree cannot recover this system
+    with phase_timer("cholsol.factor", nnz=s.lnz):
+        if shot is not None:  # the device tree cannot recover this system
             nm = _host_chol(a, s)
             s._chol_route = "host_exact"
-    if nm is None:
-        nm = chol(a, s, device=device)
-    x = np.zeros(n, dtype=np.float64)
-    ops.ipvec(n, s.pinv, bb, x)  # x = P*b
-    lx = device_values(nm, "l", device)
-    x = _tri_solve(nm.l, x, 0, device=device, tx=lx)  # x = L\x
-    x = _tri_solve(nm.l, x, 2, device=device, tx=lx)  # x = L'\x
-    out = np.zeros(n, dtype=np.float64)
-    ops.pvec(n, s.pinv, x, out)  # b = P'*x
+        else:
+            nm = chol(a, s, device=device)
+    with phase_timer("cholsol.solve", nnz=2 * s.lnz):
+        x = np.zeros(n, dtype=np.float64)
+        ops.ipvec(n, s.pinv, bb, x)  # x = P*b
+        lx = device_values(nm, "l", device)
+        x = _tri_solve(nm.l, x, 0, device=device, tx=lx)  # x = L\x
+        x = _tri_solve(nm.l, x, 2, device=device, tx=lx)  # x = L'\x
+        out = np.zeros(n, dtype=np.float64)
+        ops.pvec(n, s.pinv, x, out)  # b = P'*x
     _writeback(b, out)
     return out
 

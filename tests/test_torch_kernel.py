@@ -5,7 +5,9 @@ the solvers that run the sweep (the single-RHS solves, lusol, cholsol,
 cholsol_serve, qrsol, the batched and serving drivers cholsol_multi,
 lusol_multi, qrsol_multi, qrsol_serve and cholsol_ir, and the
 batched-values drivers cholsol_vals, lusol_vals and qrsol_vals) on the card
-against their CPU runs.
+against their CPU runs; the general operators on the card (spmv_general on
+the SpMM kernel at B = 1, spgemm_general, spmv_csc, ops.chain) and the
+kernels' sanitize mode.
 
 This file imports neither jax nor the JAX package (only the numpy test
 matrix of bench.py), so it also runs on a machine with a card and no JAX:
@@ -15,6 +17,8 @@ matrix of bench.py), so it also runs on a machine with a card and no JAX:
 The `gpu` tests skip without a card. The CPU tests hold the plain versions
 (the wrappers' path for CPU tensors) to dense numpy products and solves.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -701,3 +705,138 @@ def test_vals_drivers_on_card(monkeypatch, driver, case, mf_min_n):
             assert card[2] == (1 if driver == "qrsol_vals" else 0)
     assert np.abs(card[0] - cpu[0]).max() <= 1e-9 * max(
         1.0, np.abs(cpu[0]).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("shape", [(700, 500, 4000), (300, 900, 2500),
+                                   (64, 64, 0)])
+def test_spmv_general_matches_plain_on_card(shape, dtype, tol):
+    """spmv_general at B = 1 through the SpMM kernel, one launch per call,
+    against the kernel's plain version on the same inputs (rectangular
+    shapes and an empty A included)."""
+    from rsparse_tpu_torch.ops.spmv_general import (
+        mxu_spmv_plan, spmv_general, spmv_general_fn)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m, n, nnz = shape
+    a = _rand_sprs(m, n, nnz, 3) if nnz else rt.Sprs.zeros(m, n, 0)
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    plan = mxu_spmv_plan(a, np_dt)
+    x = np.random.default_rng(m).standard_normal(n)
+    vals = torch.as_tensor(plan.vals, device="cuda")
+    xt = torch.as_tensor(x, dtype=dtype, device="cuda")
+    before = spmm_csr.launches
+    got = spmv_general_fn(plan)(vals, xt)
+    torch.cuda.synchronize()
+    assert spmm_csr.launches == before + (1 if m else 0)
+    assert tuple(got.shape) == (m,) and got.dtype == dtype
+    want = spmm_plain(torch.as_tensor(a.x[: a.nnz()], dtype=dtype, device="cuda"),
+                      xt[:, None], plan.spmm)[:, 0]
+    assert _rel(got, want) < tol
+    public = spmv_general(a, x, plan, device="cuda")
+    assert public.device.type == "cuda" and torch.equal(public, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["spmm", "sptrsv"])
+def test_sanitize_rejects_a_corrupted_plan_on_card(monkeypatch, kernel):
+    """Inside utils.sanitize a plan whose index stream points outside the
+    matrix raises IndexError naming the kernel before the launch; the
+    plain version is never run in its place. A good plan runs the kernel,
+    synchronized, with the result it gives outside sanitize."""
+    from rsparse_tpu_torch import utils
+    from rsparse_tpu_torch.ops import spmm_cuda, sptrsv_cuda
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(spmm_cuda, "spmm_plain", no_plain)
+    monkeypatch.setattr(sptrsv_cuda, "sptrsv_plain_multi", no_plain)
+    monkeypatch.setattr(sptrsv_cuda, "_sweep_plain", no_plain)
+    if kernel == "spmm":
+        a = _rand_sprs(400, 300, 2000, 1)
+        X = torch.randn((300, 4), dtype=torch.float64, device="cuda")
+        vals = torch.as_tensor(a.x[: a.nnz()], device="cuda")
+        run = lambda plan: spmm_fn(plan)(vals, X)
+        good = spmm_plan(a)
+        bad = dataclasses.replace(good, col_idx=good.col_idx.copy())
+        bad.col_idx[7] = 300  # a column outside A
+        counter, name = spmm_csr, "SpMM kernel: col_idx"
+    else:
+        t = _tri(0, g=8)
+        X = torch.randn((t.n, 2), dtype=torch.float64, device="cuda")
+        tx = torch.as_tensor(t.x[: t.nnz()], device="cuda")
+        good, bad = rt.tri_plan(t, 0), rt.tri_plan(t, 0)
+        levels = bad if bad.dense is None else bad.dense.rest
+        levels.ent_row[0] = t.n + 3  # a row outside the triangle
+        run = lambda plan: sptrsv_multi(tx, X, plan, 0)
+        counter, name = sptrsv_multi, "SpTRSV kernel: edst"
+    want = run(good)
+    with utils.sanitize():
+        before = counter.launches
+        with pytest.raises(IndexError, match=name):
+            run(bad)
+        assert counter.launches == before
+        got = run(good)
+        assert counter.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_spgemm_general_on_card():
+    """spgemm_general on the card: C's pattern and values as the CPU run's
+    (float64 to 1e-12), float32 bit-equal across runs (no atomics)."""
+    from rsparse_tpu_torch.ops.spgemm_general import (
+        mxu_spgemm_plan, spgemm_general, spgemm_general_fn)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = _rand_sprs(3000, 2500, 20_000, 4)
+    b = _rand_sprs(2500, 2800, 20_000, 5)
+    for dtype, tol in (("float64", 1e-12), ("float32", 1e-5)):
+        got = spgemm_general(a, b, dtype=dtype, device="cuda")
+        want = spgemm_general(a, b, dtype=dtype, device="cpu")
+        assert np.array_equal(got.p, want.p) and np.array_equal(got.i, want.i)
+        err = np.abs(got.x - want.x).max() / max(1.0, np.abs(want.x).max())
+        assert err <= tol
+    f = spgemm_general_fn(mxu_spgemm_plan(a, b), "float32", device="cuda")
+    ax = torch.as_tensor(a.x[: a.nnz()], device="cuda")
+    bx = torch.as_tensor(b.x[: b.nnz()], device="cuda")
+    first = f(ax, bx)
+    assert all(torch.equal(first, f(ax, bx)) for _ in range(3))
+    assert torch.equal(first, f.run(ax, bx, *f.consts))
+
+
+@pytest.mark.gpu
+def test_general_ops_on_card():
+    """spmv_csc with its gradients, and a chain with either multiply
+    kernel ("auto" takes "mxu" on a card), against their CPU runs."""
+    from rsparse_tpu_torch.ops import chain
+    from rsparse_tpu_torch.ops.device import spmv_csc
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = _rand_sprs(500, 400, 3000, 6)
+    x = np.random.default_rng(7).standard_normal(400)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        d = a.to_device(torch.float64, device=dev)
+        ax = d.x.clone().requires_grad_()
+        xt = torch.as_tensor(x, device=dev).requires_grad_()
+        r = spmv_csc(rt.CSCDevice(d.p, d.i, ax, d.m, d.n), xt)
+        (r * r).sum().backward()
+        grads[dev] = [t.detach().cpu() for t in (r, ax.grad, xt.grad)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(got, want) < 1e-12
+    e = chain(a).transpose().multiply(a).scale(2.0).add(rt.Sprs.eye(400), beta=0.5)
+    want = e.run(multiply_kernel="esc", device="cpu")
+    for kernel in ("auto", "mxu", "esc"):
+        got = e.run(multiply_kernel=kernel, device="cuda")
+        assert np.array_equal(got.p, want.p) and np.array_equal(got.i, want.i)
+        assert np.abs(got.x - want.x).max() <= 1e-12 * max(1.0, np.abs(want.x).max())

@@ -233,17 +233,23 @@ def test_operator_overloads(name, ops_on_cpu):
 
 def _device_entry_points():
     """Every public function of the port that takes a `device` argument."""
+    import rsparse_tpu_torch.ops.spgemm_general as spgemm_general_mod
     import rsparse_tpu_torch.ops.spmm_cuda as spmm_mod
     import rsparse_tpu_torch.ops.spmv as spmv_mod
+    import rsparse_tpu_torch.ops.spmv_general as spmv_general_mod
 
     found = {}
-    for mod in (rt, rt.ops, rt.solve, rt.factor, spmm_mod, spmv_mod):
+    for mod in (rt, rt.ops, rt.solve, rt.factor, spmm_mod, spmv_mod,
+                spmv_general_mod, spgemm_general_mod):
         for name in getattr(mod, "__all__", []):
             fn = getattr(mod, name)
             if inspect.isfunction(fn) and "device" in inspect.signature(fn).parameters:
                 found[f"{fn.__module__}.{name}"] = fn
     found["rsparse_tpu_torch.solve._tri_solve_multi"] = rt.solve._tri_solve_multi
     found["rsparse_tpu_torch.solve._tri_solve"] = rt.solve._tri_solve
+    for cls, meth in ((rt.ops.ChainExpr, "values_fn"), (rt.ops.ChainExpr, "run"),
+                      (rt.Sprs, "to_device")):
+        found[f"{cls.__module__}.{cls.__name__}.{meth}"] = getattr(cls, meth)
     return found
 
 
@@ -275,4 +281,6 @@ def test_default_device_covers_the_slice():
                      "ltsolve", "usolve", "utsolve", "_tri_solve", "qr",
                      "qrsol", "qrsol_ls", "cholsol_multi", "lusol_multi",
                      "qrsol_multi", "qrsol_serve", "cholsol_ir",
-                     "cholsol_vals", "lusol_vals", "qrsol_vals"}
+                     "cholsol_vals", "lusol_vals", "qrsol_vals",
+                     "spmv_general", "spgemm_general", "spgemm_general_fn",
+                     "values_fn", "run", "to_device"}
