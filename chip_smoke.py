@@ -132,7 +132,30 @@ at full size and checks them:
      (the sweep kernel), `save_symbolic` / `load_symbolic` and cholsol with
      the loaded analysis, `profile_trace` around an spmv_general call, and
      `sanitize()` around one spmv_general call and one cholsol_serve
-     request.
+     request;
+ 14. the distributed layer (`parallel`, `parallel.halo`,
+     `spgemm_general_dist`) on a one-rank NCCL mesh (`make_mesh(device=
+     "cuda")`: one card is one rank), each call with its launch and
+     collective counts set to 0 just before it and read just after, its
+     wall, halo route, largest error, sweep launches, collectives and a
+     profile (the card's idle share) printed: `dist_gaxpy` and
+     `dist_norm` on phase 6's A (f64) and `dist_gaxpy_halo` on the DIA
+     phase's Laplacian against the C++ engine's gaxpy (1e-12);
+     `dist_spgemm` and `spgemm_general_dist` (f32, f64) on phase 13's
+     product, C's pattern the C++ engine's, values to 1e-12 / 1e-5;
+     `dist_tri_solve` and `dist_tri_solve_halo` (prefetch on and off) on
+     cholsol's L (n = 65,536), kinds 0 and 2, against the kernel sweep
+     (1e-12), their planners' seconds and bytes and ms per sweep beside
+     the kernel's; `dist_cholsol` on phase 8's Laplacian against the C++
+     engine (1e-9); `dist_lusol` on phase 7's matrix (1e-8, residual
+     1e-10 max(1, max|b|)); `dist_qrsol` on both of phase 10's matrices
+     against qrsol (1e-8); `refine_step` on the 128 x 128 Laplacian's
+     natural-order factor, 4 RHS from X = 0 (residual 1e-8); and
+     `dist_cholsol_vals` (K = 16), `dist_lusol_vals` (K = 8),
+     `dist_qrsol_vals` (K = 4, both branches) on phase 12's inputs and
+     analyses, against phase 12's answers (1e-12) and the C++ engine's
+     (phase 12's tolerances); the kernel sweeps of these paths replayed
+     against the plain version, their launches in the kernels line.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -430,13 +453,15 @@ def rand_csc(m: int, n: int, nnz: int, seed: int):
     return p, r2, v
 
 
-def device_profile(fn, steps: int) -> str:
+def device_profile(fn, steps: int, both: bool = False) -> str:
     """Run fn() `steps` times under torch.profiler and summarize: host wall
     and device busy time per step, the device activities per step
     (kernels, copies, fills), the device's idle share, and the top device
     activities by time. Only device activity is recorded: host operators
     add nothing to the summary, and after a call of tens of thousands of
-    device ops their events multiply the profiler's own processing."""
+    device ops their events multiply the profiler's own processing.
+    `both`: also read the profile through the event tree and print both
+    readers' totals (`profile_summary`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -447,19 +472,71 @@ def device_profile(fn, steps: int) -> str:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, wall_us, steps, both)
+
+
+# A profile with fewer device activities than this is also read through
+# the event tree (a few ms at most), and the larger reading is kept.
+FEW_OPS = 2000
+
+
+def device_times(prof, tree: bool):
+    """({activity name: device us}, activities) of a profile: the raw
+    device activities (`kineto_results`), or with `tree` the event tree
+    (`prof.events()`, ~0.2 ms per device op on the card's host: a minute
+    for a call of 250k ops)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
     by_name, ops = {}, 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-            ops += 1
+    if tree:
+        acts = ((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == cuda)
+    else:
+        acts = ((e.name(), e.duration_ns() / 1e3)
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == cuda)
+    for name, us in acts:
+        by_name[name] = by_name.get(name, 0.0) + us
+        ops += 1
+    return by_name, ops
+
+
+def profile_summary(prof, wall_us: float, steps: int,
+                    both: bool = False) -> str:
+    """`device_profile`'s summary of a device-only profile of `steps`
+    steps that took wall_us on the host clock, read from the raw device
+    activities; with `both`, or below FEW_OPS activities, from the event
+    tree too (the line then gives both readers' activities and device us,
+    and the summary the reading with more activities)."""
+    by_name, ops = device_times(prof, False)
+    note = ""
+    if both or ops < FEW_OPS:
+        tree, tops = device_times(prof, True)
+        note = (f" readers: kineto ops={ops} us={sum(by_name.values()):.1f} "
+                f"events ops={tops} us={sum(tree.values()):.1f}")
+        if tops > ops:
+            by_name, ops = tree, tops
     busy_us = sum(by_name.values())
     if not by_name:
-        return f"wall_us_per_step={wall_us / steps:.1f} device time not measured"
+        return (f"wall_us_per_step={wall_us / steps:.1f} device time not "
+                f"measured (no device activity recorded){note}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
     return (f"wall_us_per_step={wall_us / steps:.1f} device_us_per_step="
             f"{busy_us / steps:.1f} device_ops_per_step={ops / steps:.0f} "
             f"idle_share={1 - busy_us / wall_us:.3f} top="
-            + ";".join(f"{k[:48]}={v / steps:.1f}us" for k, v in top))
+            + ";".join(f"{k[:48]}={v / steps:.1f}us" for k, v in top) + note)
+
+
+def profiler_probe(n: int = 64) -> str:
+    """Profile n small kernels of a known count, as `device_profile` does,
+    and say how many the profiler recorded: tells a profile that lost its
+    device activity from a call that made none."""
+    import torch
+
+    x = torch.zeros(1024, device="cuda")
+    summary = device_profile(lambda: [x.add_(1) for _ in range(n)], 1)
+    return f"profiler probe ({n} kernels launched): {summary}"
 
 
 def phase_kernels(a, seed: int, device: str = "cuda"):
@@ -1158,10 +1235,12 @@ def phase_cholsol(seed: int, device: str = "cuda"):
     return a, s, launches
 
 
-def record_sweeps(call) -> dict:
-    """Run call() with every SpTRSV kernel sweep recorded: {(plan, kind,
-    instances, B): (values, X, plan, kind)}, the first launch of each,
-    inputs cloned (values [L] with X [n, B], or [K, L] with X [K, n, B])."""
+@contextlib.contextmanager
+def recording():
+    """Every SpTRSV kernel sweep launched inside is recorded into the dict
+    it yields: {(plan, kind, instances, B): (values, X, plan, kind)}, the
+    first launch of each, inputs cloned (values [L] with X [n, B], or
+    [K, L] with X [K, n, B])."""
     from rsparse_tpu_torch import solve
     from rsparse_tpu_torch.ops import sptrsv_cuda
 
@@ -1176,9 +1255,15 @@ def record_sweeps(call) -> dict:
     record.launches = 0  # the kernel counts its launches on the module's name
     sptrsv_cuda.sptrsv_multi = solve.sptrsv_multi = record
     try:
-        call()
+        yield seen
     finally:
         sptrsv_cuda.sptrsv_multi = solve.sptrsv_multi = real
+
+
+def record_sweeps(call) -> dict:
+    """Run call() with every SpTRSV kernel sweep recorded (`recording`)."""
+    with recording() as seen:
+        call()
     return seen
 
 
@@ -1991,7 +2076,7 @@ def check_vals(label: str, xs, routes, K: int, n: int, launches: int,
           f"calls (at most {most}: one per sweep for all {K} instances)")
 
 
-def vals_cholsol(lap, lap_sym, seed: int, device: str):
+def vals_cholsol(lap, lap_sym, seed: int, device: str, keep: dict):
     """cholsol_vals on the CHOL_GRID Laplacian with phase 8's analysis:
     K = 16 instances, diagonals scaled by 1 + 0.25k (the JAX bench's
     family, bench.py:336-340), B[K, n] from the seed. One cold and one warm
@@ -1999,7 +2084,8 @@ def vals_cholsol(lap, lap_sym, seed: int, device: str):
     the C++ engine's factorization and solve (1e-9 relative), walls beside
     those K C++ solves and K port cholsol calls; then one instance's
     diagonal negated must raise NotPositiveDefiniteError naming exactly it;
-    the instance-batched sweeps replayed. Returns (launches, sweep
+    the instance-batched sweeps replayed. Keeps (AxK, B, the warm call's
+    X, the C++ engine's X) in keep["chol"]. Returns (launches, sweep
     numbers, the largest kernel difference)."""
     from rsparse_tpu_torch import (NotPositiveDefiniteError, Sprs, cholsol,
                                    cholsol_vals)
@@ -2039,6 +2125,7 @@ def vals_cholsol(lap, lap_sym, seed: int, device: str):
           "launches in 2 calls")
     check(dev <= 1e-9, f"cholsol_vals differs from the C++ engine by "
           f"{dev:.3e}")
+    keep["chol"] = (AxK, B, xs[-1], Xh)
     kb = K // 2 + 1
     bad = AxK.copy()
     bad[kb, diag] *= -1.0
@@ -2052,8 +2139,8 @@ def vals_cholsol(lap, lap_sym, seed: int, device: str):
     else:
         raise SmokeError("cholsol_vals: no NotPositiveDefiniteError on an "
                          "indefinite instance")
-    print("cholsol_vals profile (1 warm call): " + device_profile(call, 1),
-          flush=True)
+    print("cholsol_vals profile (1 warm call): "
+          + device_profile(call, 1, both=True), flush=True)
     sweeps, err = replay_sweeps(
         "cholsol_vals", {k: v for k, v in record_sweeps(call).items()
                          if v[1].dim() == 3},
@@ -2062,14 +2149,15 @@ def vals_cholsol(lap, lap_sym, seed: int, device: str):
     return launches, sweeps, err
 
 
-def vals_lusol(a, s, seed: int, device: str):
+def vals_lusol(a, s, seed: int, device: str, keep: dict):
     """lusol_vals on phase 7's matrix and analysis: K = 8 instances, 0-6
     with diagonals scaled by 1 + 0.2k, 7 with its off-diagonals redrawn
     from the seed (other pivots), B[K, n]. One cold and one warm call
     (route device_mf, no instance re-solved), every instance held to its
     residual and to the C++ engine's LU and solve (1e-8 relative), walls
     beside those K C++ solves and K port lusol calls. The dense skeleton
-    runs no sweep. Returns the launches."""
+    runs no sweep. Keeps (AxK, B, the warm call's X, the C++ engine's X)
+    in keep["lu"]. Returns the launches."""
     from rsparse_tpu_torch import Sprs, lusol, lusol_vals, sqr
     from rsparse_tpu_torch.ops.plan import col_ids
     from rsparse_tpu_torch.symbolic import native
@@ -2115,12 +2203,13 @@ def vals_lusol(a, s, seed: int, device: str):
           "1e-10 max(1, max|b|)")
     check(dev <= 1e-8, f"lusol_vals differs from the C++ engine by "
           f"{dev:.3e}")
+    keep["lu"] = (AxK, B, xs[-1], np.stack(Xh))
     print("lusol_vals profile (1 warm call): " + device_profile(call, 1),
           flush=True)
     return launches
 
 
-def vals_qrsol(qr: dict, seed: int, device: str):
+def vals_qrsol(qr: dict, seed: int, device: str, keep: dict):
     """qrsol_vals on phase 10's matrices and analyses, both branches, K = 4
     instances with values scaled by 1 + 0.1k, B[K, m]. Per branch one cold
     and one warm call (route device_mf, no instance re-solved), every
@@ -2129,7 +2218,9 @@ def vals_qrsol(qr: dict, seed: int, device: str):
     instances 0 and K-1 to the C++ engine's QR and apply (1e-9; each QR
     takes seconds, so only those two; the QR of A_k serves both branches,
     the minimum norm factoring (A_k')' = A_k); the R sweeps replayed.
-    Returns (launches, sweep numbers, the largest kernel difference)."""
+    Keeps (AxK, B, the warm call's X, {k: the C++ engine's x_k}) per
+    branch in keep["qr_ls"] / keep["qr_mn"]. Returns (launches, sweep
+    numbers, the largest kernel difference)."""
     import torch
 
     from rsparse_tpu_torch import Sprs, qrsol, qrsol_vals
@@ -2173,10 +2264,11 @@ def vals_qrsol(qr: dict, seed: int, device: str):
             else:
                 gates.append(float(r.abs().max())
                              / (1e-10 * max(1.0, float(np.abs(B[k]).max()))))
-        hdev, happly = [], []
+        hdev, happly, hx = [], [], {}
         for k in (0, K - 1):
             t0 = time.perf_counter()
-            xh = host_qr_apply(label, *host[k], sref, B[k][:, None], m, n)[:, 0]
+            xh = hx[k] = host_qr_apply(label, *host[k], sref, B[k][:, None],
+                                       m, n)[:, 0]
             happly.append(time.perf_counter() - t0)
             hdev.append(max(float(np.abs(X[k] - xh).max()
                                   / max(1.0, np.abs(xh).max())) for X in xs))
@@ -2198,6 +2290,7 @@ def vals_qrsol(qr: dict, seed: int, device: str):
               f"{qdev:.3e}")
         check(max(hdev) <= 1e-9, f"qrsol_vals {label} differs from the C++ "
               f"engine by {max(hdev):.3e}")
+        keep[f"qr_{label}"] = (AxK, B, xs[-1], hx)
         if label == "ls":
             print("qrsol_vals ls profile (1 warm call): "
                   + device_profile(call, 1), flush=True)
@@ -2208,18 +2301,20 @@ def vals_qrsol(qr: dict, seed: int, device: str):
 
 
 def phase_vals(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
-               device: str = "cuda"):
+               device: str = "cuda", keep: Optional[dict] = None):
     """Phase 12: the batched-values drivers at full width, each driven
-    with the launch counts set to 0 just before it and read just after.
-    Returns (launches by path, the instance-batched sweeps' numbers, the
-    largest kernel difference)."""
+    with the launch counts set to 0 just before it and read just after;
+    their inputs and answers kept in `keep` (for phase 14). Returns
+    (launches by path, the instance-batched sweeps' numbers, the largest
+    kernel difference)."""
     t0 = time.perf_counter()
+    keep = {} if keep is None else keep
     by_path, sweeps, max_abs = {}, [], 0.0
     by_path["cholsol_vals"], out, err = vals_cholsol(lap, lap_sym, seed,
-                                                     device)
+                                                     device, keep)
     sweeps, max_abs = sweeps + out, max(max_abs, err)
-    by_path["lusol_vals"] = vals_lusol(a, lu_sym, seed, device)
-    by_path["qrsol_vals"], out, err = vals_qrsol(qr, seed, device)
+    by_path["lusol_vals"] = vals_lusol(a, lu_sym, seed, device, keep)
+    by_path["qrsol_vals"], out, err = vals_qrsol(qr, seed, device, keep)
     sweeps, max_abs = sweeps + out, max(max_abs, err)
     print(f"vals: phase_s={time.perf_counter() - t0:.1f} sweep_launches="
           f"{by_path}", flush=True)
@@ -2685,6 +2780,354 @@ def phase_general(lap, lap_sym, seed: int, device: str = "cuda"):
     return launches, recs, sweeps, spgemm, opchain, max_abs
 
 
+DIST_REFINE_GRID = 128  # refine_step's Laplacian (natural order factor)
+
+
+def dist_report(label: str, call, check_fn, by_path: dict, seen: dict,
+                path: Optional[str] = None, extra=lambda out: ""):
+    """Drive one distributed call once, with the sweep launch counts, the
+    collective counts and the halo routes set to 0 just before it and read
+    just after, its device activity profiled and its kernel sweeps
+    recorded; hold its result to check_fn(out) (which fails the run, else
+    returns the largest error) and print its line: wall (host clock, the
+    profiled run), route, error, launches, collectives, device time and
+    the card's idle share, and the phase's seconds so far. A call on a
+    sweep `path` ("may" or "must" launch the kernel; "must" fails the run
+    when it launched none) enters its launches into `by_path` and its
+    recorded sweeps into seen[label] for the replay. Returns the result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from rsparse_tpu_torch import parallel as par
+    from rsparse_tpu_torch.parallel.halo import dist_tri_solve_halo
+
+    before = dict(dist_tri_solve_halo.routes)
+    reset_counts()
+    par.reset_comm_counts()
+    torch.cuda.synchronize()
+    with recording() as rec, profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()["sptrsv_sweep"]  # the recorder's count
+    comm = par.comm_counts()
+    routes = {k: v - before[k] for k, v in dist_tri_solve_halo.routes.items()
+              if v != before[k]}
+    err = check_fn(out)
+    summary = profile_summary(prof, wall * 1e6, 1, both=label == "dist_norm")
+    if "not measured" in summary:
+        # the profile lost the call's device activity: a probe of known
+        # kernels, then the call once more (warm) under a fresh profile
+        summary += (f"; {profiler_probe()}; warm rerun: "
+                    + device_profile(call, 1, both=True))
+    print(f"dist {label}: wall_s={wall:.4f} routes={routes} max_err="
+          f"{err:.3e} sweep_launches={launches} collectives={comm}"
+          f"{extra(out)} profile: {summary} "
+          f"phase_t_s={time.perf_counter() - DIST_T0[0]:.1f}", flush=True)
+    if path is not None:
+        by_path[label] = launches
+        check(launches >= 1 or path == "may",
+              f"dist {label}: no kernel sweep launched")
+        if rec:
+            seen[label] = rec
+    return out
+
+
+DIST_T0 = [0.0]  # phase 14's start on the host clock
+
+
+def rel_np(got, ref) -> float:
+    got = got.cpu().numpy() if hasattr(got, "cpu") else np.asarray(got)
+    return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
+
+
+def dist_ops(mesh, seed: int, device: str) -> None:
+    """dist_gaxpy and dist_norm on phase 6's A (float64), dist_gaxpy_halo
+    on the DIA phase's 1024 x 1024 Laplacian, each against the C++
+    engine's gaxpy (the norm against numpy's column sums); dist_spgemm and
+    spgemm_general_dist (float32 and float64) on phase 13's product, C's
+    pattern equal to the C++ engine's, values to 1e-12 / 1e-5."""
+    from rsparse_tpu_torch import Sprs
+    from rsparse_tpu_torch import parallel as par
+    from rsparse_tpu_torch.ops.plan import col_ids
+    from rsparse_tpu_torch.ops.spgemm_general import spgemm_general_dist
+    from rsparse_tpu_torch.parallel import halo as H
+    from rsparse_tpu_torch.symbolic import native
+
+    rng = np.random.default_rng(seed + 18)
+    n = SPMM_N
+    Ap, Ai, Ax = rand_csc(n, n, SPMM_NNZ, seed=0)
+    A = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    x, y = rng.standard_normal(n), rng.standard_normal(n)
+    t0 = time.perf_counter()
+    ep = par.partition_entries(A, 1)
+    t_part = time.perf_counter() - t0
+    want = native.gaxpy_host(n, n, Ap, Ai, Ax, x, y)
+    tol = lambda e, lim, what: (check(e <= lim, f"dist {what}: {e:.3e} from "
+                                      "the host reference") or e)
+    dist_report("dist_gaxpy", lambda: par.dist_gaxpy(ep, x, y, mesh),
+                lambda r: tol(rel_np(r, want), 1e-12, "dist_gaxpy"), {}, {},
+                extra=lambda _: f" n={n} nnz={len(Ax)} partition_s="
+                f"{t_part:.3f}")
+    norm = float(np.bincount(col_ids(Ap, n), np.abs(Ax), n).max())
+    dist_report("dist_norm", lambda: par.dist_norm(ep, mesh),
+                lambda v: tol(abs(v - norm) / norm, 1e-12, "dist_norm"), {},
+                {})
+    g, Lp, Li, Lx = laplacian_5pt(DIA_GRID)
+    lap = Sprs(len(Lx), g, g, Lp, Li, Lx)
+    t0 = time.perf_counter()
+    rp = H.partition_rows(lap, 1)
+    t_part = time.perf_counter() - t0
+    xl = rng.standard_normal(g)
+    want = native.gaxpy_host(g, g, Lp, Li, Lx, xl, np.zeros(g))
+    dist_report("dist_gaxpy_halo",
+                lambda: H.dist_gaxpy_halo(rp, xl, np.zeros(g), mesh),
+                lambda r: tol(rel_np(r, want), 1e-12, "dist_gaxpy_halo"), {},
+                {}, extra=lambda _: f" n={g} hops={rp.hops} partition_s="
+                f"{t_part:.3f}")
+    m = GEN_SPGEMM_N
+    Bp, Bi, Bx = rand_csc(m, m, GEN_SPGEMM_NNZ, seed=0)
+    Cp_, Ci_, Cx_ = rand_csc(m, m, GEN_SPGEMM_NNZ, seed=1)
+    u, v = Sprs(len(Bx), m, m, Bp, Bi, Bx), Sprs(len(Cx_), m, m, Cp_, Ci_, Cx_)
+    Cp, Ci, Cx = native.multiply_host(m, m, Bp, Bi, Bx, m, Cp_, Ci_, Cx_)
+    order = np.lexsort((Ci, col_ids(Cp, m)))
+    Ci, Cx = Ci[order], Cx[order]
+
+    def same(c, lim, what):
+        check(np.array_equal(c.p, Cp) and np.array_equal(c.i[: c.nnz()], Ci),
+              f"dist {what}: C's pattern differs from the C++ engine's")
+        return tol(rel_np(c.x[: c.nnz()], Cx), lim, what)
+
+    dist_report("dist_spgemm", lambda: par.dist_spgemm(u, v, mesh),
+                lambda c: same(c, 1e-12, "dist_spgemm"), {}, {},
+                extra=lambda c: f" n={m} nnzC={c.nnz()}")
+    for dt, lim in (("float32", 1e-5), ("float64", 1e-12)):
+        dist_report(f"spgemm_general_dist {dt}",
+                    lambda: spgemm_general_dist(u, v, mesh, dtype=dt),
+                    lambda c: same(c, lim, f"spgemm_general_dist {dt}"), {},
+                    {})
+
+
+def dist_sweeps(mesh, lap, lap_sym, seed: int, device: str) -> None:
+    """dist_tri_solve and dist_tri_solve_halo (prefetch on and off) on
+    cholsol's L (phase 8's Laplacian and analysis, n = 65,536), kinds 0
+    and 2, each held to the port's kernel sweep (1e-12 relative), with
+    the planners' seconds (the halo plan's with its device tables) and
+    bytes, each solve's wall beside the kernel's ms (CUDA events) on the
+    same L."""
+    import torch
+
+    from rsparse_tpu_torch import chol, tri_plan
+    from rsparse_tpu_torch import parallel as par
+    from rsparse_tpu_torch.factor import device_values
+    from rsparse_tpu_torch.ops.sptrsv_cuda import sptrsv_multi
+    from rsparse_tpu_torch.parallel import halo as H
+
+    nm = chol(lap, lap_sym, device=device)
+    L = nm.l
+    tx = device_values(nm, "l", device)
+    n = L.n
+    b = np.random.default_rng(seed + 19).standard_normal(n)
+    for kind in (0, 2):
+        t0 = time.perf_counter()
+        dp = par.dist_tri_plan(L, kind, 1)
+        t_dp = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hp = H.halo_tri_plan(L, kind, 1)
+        flo, F = H._block_tables(hp)
+        H._rank_tables(hp, 0, par._device(mesh))  # the sweep's device tables
+        t_hp = time.perf_counter() - t0
+        hbytes = sum(getattr(hp, f).nbytes for f in (
+            "c_off", "c_loc", "c_diag", "e_off", "e_pos", "e_row", "e_col",
+            "e_div"))
+        padded = 4 * hp.d * hp.nlev * (2 * hp.wmax + 4 * hp.emax)
+        tp = tri_plan(L, kind)
+        X = torch.as_tensor(b, device=device)[:, None]
+        ref = sptrsv_multi(tx, X, tp, kind)[:, 0]
+        kern_ms = cuda_ms(lambda: sptrsv_multi(tx, X, tp, kind), 5)
+        print(f"dist sweeps kind={kind}: n={n} lnz={L.nnz()} levels="
+              f"{hp.nlev} blocks={hp.nblocks} wmax={hp.wmax} emax={hp.emax} "
+              f"F={F} dist_tri_plan_s={t_dp:.3f} halo_tri_plan_s={t_hp:.3f} "
+              f"halo_plan_bytes={hbytes} padded_tables_bytes(JAX layout)="
+              f"{padded} kernel_ms={kern_ms:.4f}", flush=True)
+        ref_h = ref.cpu().numpy()
+        calls = {
+            "dist_tri_solve": lambda: par.dist_tri_solve(L, b, kind, mesh,
+                                                         plan=dp, tx=tx),
+            "dist_tri_solve_halo prefetch": lambda: H.dist_tri_solve_halo(
+                L, b, kind, mesh, plan=hp, prefetch=True, tx=tx),
+            "dist_tri_solve_halo blocking": lambda: H.dist_tri_solve_halo(
+                L, b, kind, mesh, plan=hp, prefetch=False, tx=tx)}
+        for name, call in calls.items():
+            dist_report(f"{name} kind={kind}", call,
+                        lambda x: (check(rel_np(x, ref_h) <= 1e-12,
+                                         f"dist {name} kind={kind}: differs "
+                                         "from the kernel sweep")
+                                   or rel_np(x, ref_h)), {}, {},
+                        extra=lambda _: f" kernel_ms={kern_ms:.4f} (wall_s "
+                        "is one sweep)")
+
+
+def dist_solvers(mesh, a, lu_sym, lap, lap_sym, qr: dict, seed: int,
+                 device: str, by_path: dict, seen: dict) -> None:
+    """dist_cholsol on phase 8's Laplacian (AMD) against the C++ engine's
+    chol and solves (1e-9); dist_lusol on phase 7's matrix against the
+    C++ engine's LU (1e-8) and its residual (1e-10 max(1, max|b|));
+    dist_qrsol (CSNE, 2 refinement steps) on both of phase 10's matrices
+    against the port's qrsol (1e-8); refine_step on the DIST_REFINE_GRID
+    Laplacian's natural-order factor (the C++ engine's), 4 RHS from
+    X = 0, its residual (1e-8)."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, qrsol, schol, sqr
+    from rsparse_tpu_torch import parallel as par
+    from rsparse_tpu_torch.parallel import halo as H
+    from rsparse_tpu_torch.symbolic import native
+
+    rng = np.random.default_rng(seed + 20)
+    n = lap.n
+    b = rng.standard_normal(n)
+    s1 = schol(lap, 1)
+    xh = chol_host_solves(n, chol_host_factor(lap, s1),
+                          np.asarray(s1.pinv, np.int64), b[:, None])[:, 0]
+    dist_report("dist_cholsol", lambda: par.dist_cholsol(lap, b, mesh, 1),
+                lambda x: (check(rel_np(x, xh) <= 1e-9, "dist_cholsol "
+                                 "differs from the C++ engine")
+                           or rel_np(x, xh)), by_path, seen, path="must")
+    nl, nz = a.n, a.nnz()
+    bl = rng.standard_normal(nl)
+    s0 = sqr(a, 1, False)
+    f = native.lu_numeric(nl, a.p, a.i[:nz], a.x[:nz], s0.q, 1e-6, s0.lnz,
+                          s0.unz)
+    xlh = host_solves(a, bl[:, None], (*f, np.asarray(s0.q, np.int64)))[:, 0]
+
+    def lu_ok(x):
+        res = float(np.abs(host_residual(a, x) - bl).max())
+        check(res <= 1e-10 * max(1.0, float(np.abs(bl).max())),
+              f"dist_lusol: residual {res:.3e}")
+        check(rel_np(x, xlh) <= 1e-8, "dist_lusol differs from the C++ "
+              "engine")
+        return rel_np(x, xlh)
+
+    dist_report("dist_lusol", lambda: H.dist_lusol(a, bl, mesh, 1, 1e-6),
+                lu_ok, by_path, seen, path="may")
+    for label, mat, s in (("ls", qr["a"], qr["ls"]), ("mn", qr["aw"],
+                                                       qr["mn"])):
+        bq = rng.standard_normal(mat.m)
+        xq = qrsol(mat, bq.copy(), 2, sym=s, device=device)
+        dist_report(f"dist_qrsol {label}",
+                    lambda: H.dist_qrsol(mat, bq, mesh, 2),
+                    lambda x: (check(rel_np(x, xq) <= 1e-8, f"dist_qrsol "
+                                     f"{label} differs from qrsol")
+                               or rel_np(x, xq)), by_path, seen,
+                    path="may")
+    g, Rp, Ri, Rx = laplacian_5pt(DIST_REFINE_GRID)
+    r = Sprs(len(Rx), g, g, Rp, Ri, Rx)
+    # the C++ engine's natural-order factor: the port's chol would build a
+    # multifrontal plan for this one-chain tree first (~40 s on the host)
+    Lp, Li, Lx = chol_host_factor(r, schol(r, -1))
+    L = Sprs(len(Lx), g, g, Lp, Li, Lx)
+    B = rng.standard_normal((4, g))
+
+    def refine_ok(X):
+        Xh = X.cpu().numpy()
+        res = max(float(np.abs(host_residual(r, Xh[k]) - B[k]).max())
+                  for k in range(4))
+        check(X.shape == (4, g) and res <= 1e-8,
+              f"refine_step: residual {res:.3e}")
+        return res
+
+    dist_report("refine_step", lambda: par.refine_step(r, L, np.zeros_like(B),
+                                                       B, mesh),
+                refine_ok, by_path, seen,
+                extra=lambda _: f" n={g} lnz={L.nnz()} (max_err: the "
+                "residual)")
+    torch.cuda.empty_cache()
+
+
+def dist_vals(mesh, a, lu_sym, lap, lap_sym, qr: dict, vals: dict,
+              device: str, by_path: dict, seen: dict) -> None:
+    """dist_cholsol_vals, dist_lusol_vals and dist_qrsol_vals (both
+    branches) on phase 12's inputs and analyses over the data axis of the
+    one-rank mesh, each held to phase 12's answers (1e-12: at D = 1 the
+    same computation) and to the C++ engine's to phase 12's tolerances
+    (1e-9, 1e-8, 1e-9)."""
+    from rsparse_tpu_torch import parallel as par
+
+    def held(label, X, X12, Xh, lim, ks=None):
+        ks = range(len(X12)) if ks is None else ks
+        e12 = max(inst_rel(X, X12, range(len(X12))))
+        eh = max(float(np.abs(X[k] - Xh[k]).max()
+                       / max(1.0, np.abs(Xh[k]).max())) for k in ks)
+        check(X.shape == X12.shape and e12 <= 1e-12, f"dist {label}: "
+              f"{e12:.3e} from phase 12's answer")
+        check(eh <= lim, f"dist {label}: {eh:.3e} from the C++ engine")
+        return max(e12, eh)
+
+    AxK, B, X12, Xh = vals["chol"]
+    dist_report("dist_cholsol_vals", lambda: par.dist_cholsol_vals(
+        lap, AxK, B, mesh, 1, sym=lap_sym),
+        lambda X: held("dist_cholsol_vals", X, X12, Xh, 1e-9), by_path, seen,
+        path="must", extra=lambda _: f" K={len(AxK)} route="
+        f"{lap_sym._vals_route}")
+    AxK, B, X12, Xh = vals["lu"]
+    dist_report("dist_lusol_vals", lambda: par.dist_lusol_vals(
+        a, AxK, B, mesh, 1, 1e-6, sym=lu_sym),
+        lambda X: held("dist_lusol_vals", X, X12, Xh, 1e-8), by_path, seen,
+        path="may", extra=lambda _: f" K={len(AxK)} route={lu_sym._vals_route}")
+    for label in ("ls", "mn"):
+        AxK, B, X12, hx = vals[f"qr_{label}"]
+        aa, s = (qr["a"], qr["ls"]) if label == "ls" else (qr["aw"], qr["mn"])
+        dist_report(f"dist_qrsol_vals {label}", lambda: par.dist_qrsol_vals(
+            aa, AxK, B, mesh, 2, sym=s),
+            lambda X: held(f"dist_qrsol_vals {label}", X, X12, hx, 1e-9,
+                           ks=list(hx)), by_path, seen, path="must",
+            extra=lambda _: f" K={len(AxK)} route={s._vals_route}")
+
+
+def phase_dist(a, lu_sym, lap, lap_sym, qr: dict, vals: dict, seed: int,
+               device: str = "cuda"):
+    """Phase 14: the distributed layer (`parallel`, `parallel.halo`,
+    `spgemm_general_dist`) on a one-rank NCCL mesh (`make_mesh(device=
+    "cuda")`, D = 1: the card is one rank), each call with its launch and
+    collective counts set to 0 just before it and read just after, held to
+    its reference, with its wall, route, largest error, sweep launches,
+    collectives and a profile (the card's idle share). The kernel sweeps
+    of the paths that launch them are replayed against the plain version.
+    Returns (sweep launches by path, the replays' numbers, the largest
+    kernel difference)."""
+    import torch
+
+    from rsparse_tpu_torch import parallel as par
+
+    t0 = DIST_T0[0] = time.perf_counter()
+    mesh = par.make_mesh(device=device)
+    print(f"dist: mesh={mesh} backend={torch.distributed.get_backend()} "
+          f"world_size={torch.distributed.get_world_size()} mesh_s="
+          f"{time.perf_counter() - t0:.2f}", flush=True)
+    by_path, seen = {}, {}
+    try:
+        dist_ops(mesh, seed, device)
+        dist_sweeps(mesh, lap, lap_sym, seed, device)
+        dist_solvers(mesh, a, lu_sym, lap, lap_sym, qr, seed, device,
+                     by_path, seen)
+        dist_vals(mesh, a, lu_sym, lap, lap_sym, qr, vals, device, by_path,
+                  seen)
+    finally:
+        torch.distributed.destroy_process_group()
+    sweeps, max_abs = [], 0.0
+    for label, rec in seen.items():
+        out, err = replay_sweeps(f"dist {label}", rec, lambda B: (
+            "factor" if B > 1 else "solve"))
+        sweeps, max_abs = sweeps + out, max(max_abs, err)
+    torch.cuda.empty_cache()
+    print(f"dist: phase_s={time.perf_counter() - t0:.1f} sweep_launches="
+          f"{by_path}", flush=True)
+    return by_path, sweeps, max_abs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2734,10 +3177,13 @@ def main(argv=None) -> int:
         qr_launches, r_sweeps, r_err, qr = phase_qrsol(args.seed)
         multi_paths, multi_sweeps, multi_err = phase_multi(
             a, lu_sym, lap, lap_sym, qr, args.seed)
+        vals = {}
         vals_paths, vals_sweeps, vals_err = phase_vals(
-            a, lu_sym, lap, lap_sym, qr, args.seed)
+            a, lu_sym, lap, lap_sym, qr, args.seed, keep=vals)
         (general_launches, spmv_general_recs, general_sweeps, spgemm,
          opchain, general_err) = phase_general(lap, lap_sym, args.seed)
+        dist_paths, dist_sweeps_, dist_err = phase_dist(
+            a, lu_sym, lap, lap_sym, qr, vals, args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2749,18 +3195,19 @@ def main(argv=None) -> int:
     by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
                "cholsol": cholsol_launches, "lusol": lusol_launches,
                "qrsol": qr_launches, **multi_paths, **vals_paths,
-               **general_sweeps}
+               **general_sweeps, **dist_paths}
     print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
           f"sweep: {kind2}", flush=True)
     sweep = entry("sptrsv_sweep", "sptrsv.cu",
                   "rsparse_tpu/ops/sptrsv_pallas.py:191",
                   sum(by_path.values()),
-                  max(max_abs, kind2_err, r_err, multi_err, vals_err),
-                  main_ms)
+                  max(max_abs, kind2_err, r_err, multi_err, vals_err,
+                      dist_err), main_ms)
     sweep["launches_by_path"] = by_path
     sweep["qr_r_sweeps"] = r_sweeps
     sweep["multi_sweeps"] = multi_sweeps
     sweep["vals_sweeps"] = vals_sweeps
+    sweep["dist_sweeps"] = dist_sweeps_
     spmm_paths = {"gaxpy_multi": spmm_counts["spmm_stream"],
                   "spmv_general": general_launches}
     spmm_entry = entry("spmm_stream", "spmm.cu",

@@ -6,7 +6,8 @@ It imports torch and numpy, never jax or rsparse_tpu.
 
 Ported so far (the `lusol_serve` slice, the L2 operator slice, the
 direct solvers `lusol`/`cholsol`/`qrsol`, the batched and serving
-drivers, the batched-values drivers, the general operators and `utils`):
+drivers, the batched-values drivers, the general operators, `utils` and
+the distributed layer):
   - L1' storage: `Sprs`, `Trpl`, `Symb`, `Nmrc`, `.sprs` IO (`data`), the
     device view `CSCDevice` (`Sprs.to_device`/`from_device`), and
     `convert` to build them from plain numpy fields.
@@ -50,6 +51,10 @@ drivers, the batched-values drivers, the general operators and `utils`):
   - Aux (`utils`): the phase-metrics registry that `lusol`/`cholsol` fill,
     `profile_trace`, the kernels' `sanitize` mode, and `.npz` checkpoints
     of analyses and factors, interchangeable with the JAX package's.
+  - L6' distributed (`parallel`, `parallel.halo`,
+    `ops.spgemm_general.spgemm_general_dist`): the JAX package's mesh
+    layer on `torch.distributed`, one process per rank (NCCL on cards,
+    gloo on the CPU); imported on its own, as in the JAX package.
 
 The device-facing entry points take an explicit `device` argument, which
 defaults to the card ("cuda").

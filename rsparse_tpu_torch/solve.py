@@ -1673,7 +1673,8 @@ def _vals_redo(solve, a: Sprs, AxK, Bm, idx, out: np.ndarray,
     """The per-instance tier: out[k] = solve(instance k, b_k) for k in idx
     (the port's single-system driver), the rest of out kept;
     `s._vals_route` = (route, the count re-solved). A
-    NotPositiveDefiniteError names every instance that raised it."""
+    NotPositiveDefiniteError names every instance that raised it (listed
+    in its `instances`)."""
     from .errors import NotPositiveDefiniteError
 
     s._vals_route = (route, len(idx))
@@ -1684,8 +1685,10 @@ def _vals_redo(solve, a: Sprs, AxK, Bm, idx, out: np.ndarray,
         except NotPositiveDefiniteError:
             bad.append(int(k))
     if bad:
-        raise NotPositiveDefiniteError(
+        err = NotPositiveDefiniteError(
             f"instances {bad} are not positive definite")
+        err.instances = bad
+        raise err
     return out
 
 

@@ -44,7 +44,9 @@ def test_port_imports_no_jax():
     import subprocess
 
     code = ("import sys, rsparse_tpu_torch, rsparse_tpu_torch.factor.frontal_lu,"
-            " rsparse_tpu_torch.ops.spmv, rsparse_tpu_torch.ops.spmm_cuda;"
+            " rsparse_tpu_torch.ops.spmv, rsparse_tpu_torch.ops.spmm_cuda,"
+            " rsparse_tpu_torch.parallel, rsparse_tpu_torch.parallel.halo,"
+            " rsparse_tpu_torch.ops.spgemm_general;"
             "assert 'jax' not in sys.modules, 'jax';"
             "assert 'rsparse_tpu' not in sys.modules, 'rsparse_tpu'")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -6,8 +6,9 @@ cholsol_serve, qrsol, the batched and serving drivers cholsol_multi,
 lusol_multi, qrsol_multi, qrsol_serve and cholsol_ir, and the
 batched-values drivers cholsol_vals, lusol_vals and qrsol_vals) on the card
 against their CPU runs; the general operators on the card (spmv_general on
-the SpMM kernel at B = 1, spgemm_general, spmv_csc, ops.chain) and the
-kernels' sanitize mode.
+the SpMM kernel at B = 1, spgemm_general, spmv_csc, ops.chain), the
+kernels' sanitize mode, and the distributed layer on a one-rank NCCL mesh
+(the halo and replicated sweeps, dist_cholsol_vals).
 
 This file imports neither jax nor the JAX package (only the numpy test
 matrix of bench.py), so it also runs on a machine with a card and no JAX:
@@ -840,3 +841,96 @@ def test_general_ops_on_card():
         got = e.run(multiply_kernel=kernel, device="cuda")
         assert np.array_equal(got.p, want.p) and np.array_equal(got.i, want.i)
         assert np.abs(got.x - want.x).max() <= 1e-12 * max(1.0, np.abs(want.x).max())
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL mesh on the card (`make_mesh(device="cuda")`),
+    its process group destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch import parallel as par
+
+    yield par.make_mesh(device="cuda")
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_dist_tri_solve_halo_on_card(nccl_mesh, kind):
+    """The halo sweep (prefetch on and off, bit-equal) and the replicated
+    level sweep on a one-rank NCCL mesh against the single-process kernel
+    sweep on the card."""
+    from rsparse_tpu_torch import parallel as par
+    from rsparse_tpu_torch.parallel import halo as H
+    from rsparse_tpu_torch.solve import _tri_solve
+
+    t = _tri(kind)
+    b = np.random.default_rng(kind).standard_normal(t.n)
+    want = _tri_solve(t, b, kind, device="cuda")
+    on = H.dist_tri_solve_halo(t, b, kind, nccl_mesh, prefetch=True)
+    off = H.dist_tri_solve_halo(t, b, kind, nccl_mesh, prefetch=False)
+    rep = par.dist_tri_solve(t, b, kind, nccl_mesh)
+    assert rep.device.type == "cuda"
+    assert np.array_equal(on, off)
+    for got in (on, rep.cpu().numpy()):
+        assert np.abs(got - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_dist_cholsol_vals_on_card(nccl_mesh, monkeypatch):
+    """dist_cholsol_vals on a one-rank NCCL mesh (the multifrontal route,
+    K = 5) against cholsol_vals on the card; an indefinite instance raises
+    NotPositiveDefiniteError naming it."""
+    from rsparse_tpu_torch import parallel as par
+
+    monkeypatch.setattr(rt.config, "mf_min_n", 100)
+    n, p, i, x = laplacian_5pt(20)
+    a = sprs_from_fields(n, n, p, i, x)
+    K = 5
+    diag = i == np.repeat(np.arange(n), np.diff(p))
+    AxK = np.tile(x, (K, 1))
+    AxK[:, diag] *= (1.0 + 0.2 * np.arange(K))[:, None]
+    B = np.random.default_rng(13).standard_normal((K, n))
+    s = rt.schol(a, 1)
+    got = par.dist_cholsol_vals(a, AxK, B, nccl_mesh, 1, sym=s)
+    assert s._vals_route == ("device_mf", 0)
+    want = rt.cholsol_vals(a, AxK, B, 1, sym=s, device="cuda")
+    assert np.abs(got - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
+    AxK[3, diag] *= -1.0
+    with pytest.raises(rt.NotPositiveDefiniteError, match=r"\[3\]"):
+        par.dist_cholsol_vals(a, AxK, B, nccl_mesh, 1, sym=s)
+
+
+@pytest.mark.gpu
+def test_dist_spgemm_on_card(nccl_mesh):
+    """dist_spgemm and spgemm_general_dist on a one-rank NCCL mesh against
+    spgemm_general on the card, and the per-rank value pass with the
+    sorted product stream split as D = 3 ranks would split it (one range
+    cut inside a run of products, one range empty): C's pattern equal,
+    float64 to 1e-12."""
+    from rsparse_tpu_torch import parallel as par
+    from rsparse_tpu_torch.ops.spgemm_general import (
+        _range_part, mxu_spgemm_plan, spgemm_general, spgemm_general_dist)
+
+    a = _rand_sprs(3000, 2500, 20_000, 4)
+    b = _rand_sprs(2500, 2800, 20_000, 5)
+    want = spgemm_general(a, b, dtype="float64", device="cuda")
+    tol = 1e-12 * max(1.0, np.abs(want.x).max())
+    for got in (par.dist_spgemm(a, b, nccl_mesh),
+                spgemm_general_dist(a, b, nccl_mesh, dtype="float64")):
+        assert np.array_equal(got.p, want.p) and np.array_equal(got.i, want.i)
+        assert np.abs(got.x - want.x).max() <= tol
+    p = mxu_spgemm_plan(a, b)
+    assert p is mxu_spgemm_plan(a, b)  # cached per pattern pair
+    E = len(p.a_idx)
+    j = int(np.argmax(p.lengths >= 2))
+    assert p.lengths[j] >= 2
+    cut = int(p.lengths[:j].sum()) + 1  # inside entry j's run of products
+    ax = torch.as_tensor(a.x[: a.nnz()], device="cuda")
+    bx = torch.as_tensor(b.x[: b.nnz()], device="cuda")
+    parts = [_range_part(p, ax, bx, lo, hi, torch.float64, "cuda")
+             for lo, hi in ((0, cut), (cut, E), (E, E))]
+    assert not parts[2].any()
+    got = sum(parts).cpu().numpy()
+    assert np.abs(got - want.x).max() <= tol
