@@ -155,7 +155,37 @@ at full size and checks them:
      `dist_qrsol_vals` (K = 4, both branches) on phase 12's inputs and
      analyses, against phase 12's answers (1e-12) and the C++ engine's
      (phase 12's tolerances); the kernel sweeps of these paths replayed
-     against the plain version, their launches in the kernels line.
+     against the plain version, their launches in the kernels line;
+ 15. small systems and examples: `examples_torch/basic.py`, `serving.py`
+    and `distributed.py` (one NCCL rank under torchrun), each in a
+    subprocess on the card (`chip_smoke.py --example`: the example run
+    as its own `__main__`, its launch counts set to 0 just before and
+    read just after, its sweep and SpMM launches recorded and replayed
+    against the plain versions), exit 0, their saved answers held to the
+    C++ engine, each launching the sweep kernel and serving and
+    distributed the SpMM kernel; then the routes below `mf_min_n` at the
+    largest grid under it (38 x 38, n = 1,444, seed 0), each call once
+    cold (its analysis inside the wall) and three times warm (the
+    analysis reused, the first's sweeps recorded), its launch counts set to 0 just before
+    it and read just after, its route, sweep launches and the C++
+    engine's wall for the same work printed: `lusol` at order 1 (the
+    level LU's static pivots are refused at plan build, so the host
+    engine factors; printed as such) and order -1 (the level LU),
+    `lusol_multi` (B[n, 128]) and `lusol_vals` (K = 8, per instance) at
+    order -1 on make_matrix(38), held to the C++ engine (1e-8, residual
+    1e-10 max(1, max|b|)); `cholsol` at orders 0 and 1, `cholsol_multi`
+    (B[n, 128]) on its serving route and with `serve_mixed = "off"` on
+    its level route, and `cholsol_vals` (K = 8, per instance) on the
+    38 x 38 Laplacian, every factorization the level Cholesky, held to
+    the C++ engine (1e-9); `qrsol` on both branches of qr_matrix(seed,
+    38) (2,888 x 1,444) and its transpose, the level Householder QR, held
+    to the C++ engine (1e-9) and the gradient gate / the residual;
+    `factor.qr` on the same matrix (route device_level: V, R and beta
+    1e-12 of the C++ engine's) and on rand_csc(2000, 1000, 8000) at order
+    2 (its work estimate over `PLAN_ENTRY_CAP`: the host export), with
+    the estimates; the README 8 x 8 as basic.py saved it (x[0] =
+    0.2646806068156303 to 1e-12) and a 1 x 1 system; every recorded
+    sweep replayed against the plain version.
 
 Every kernel's launch counter is set to 0 just before each main path and
 read just after it; a path whose kernel did not launch fails the run.
@@ -164,6 +194,7 @@ failed check exits non-zero before the last line. Without a CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --example NAME REPORT [ARGS...]   # phase 15's child
 
 Kernel times are CUDA-event means; the DIA and SpMM phases evict the 50 MB
 L2 before every timed launch (their inputs would otherwise sit in it) by
@@ -185,8 +216,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from typing import Optional
@@ -421,22 +455,13 @@ def rel_err(got, ref) -> tuple:
 
 
 def laplacian_5pt(g: int):
-    """5-point Laplacian on a g x g grid, CSC (the JAX bench's generator)."""
-    n = g * g
-    idx = np.arange(n, dtype=np.int64)
-    gx, gy = idx // g, idx % g
-    rows, cols, vals = [idx], [idx], [np.full(n, 4.0)]
-    for dx, dy in ((-1, 0), (1, 0), (0, -1), (0, 1)):
-        nx, ny = gx + dx, gy + dy
-        ok = (nx >= 0) & (nx < g) & (ny >= 0) & (ny < g)
-        rows.append((nx * g + ny)[ok])
-        cols.append(idx[ok])
-        vals.append(np.full(int(ok.sum()), -1.0))
-    r, c, v = np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
-    order = np.lexsort((r, c))
-    p = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(c, minlength=n), out=p[1:])
-    return n, p, r[order], v[order]
+    """5-point Laplacian on a g x g grid, CSC: (n, p, i, x) of the
+    examples' generator (`examples_torch/laplacian.py`)."""
+    from examples_torch.laplacian import laplacian_5pt as lap
+
+    a = lap(g)
+    nz = a.nnz()
+    return a.n, a.p, a.i[:nz], a.x[:nz]
 
 
 def rand_csc(m: int, n: int, nnz: int, seed: int):
@@ -1330,6 +1355,78 @@ def replay_sweeps(label: str, seen: dict, what) -> tuple:
               f"bound_ms={b_ms:.5f} ({b_by}; {nbytes} bytes, {flops} "
               f"operations) bound_share={b_ms / ms:.5f} {lib_txt}", flush=True)
         out.append({"path": label, "kind": kind, "n": plan.n, "K": K, "B": B,
+                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib})
+    return out, max_abs
+
+
+@contextlib.contextmanager
+def recording_spmm():
+    """Every SpMM kernel launch inside is recorded into the dict it yields:
+    {(plan, dtype, B): (CSR-ordered values, X, plan)}, the first launch of
+    each, inputs cloned."""
+    from rsparse_tpu_torch.ops import spmm_cuda, spmv_general
+
+    real, seen = spmm_cuda.spmm_csr, {}
+
+    def record(vals_csr, X, plan):
+        key = (id(plan), X.dtype, X.shape[1])
+        if key not in seen:
+            seen[key] = (vals_csr.clone(), X.clone(), plan)
+        return real(vals_csr, X, plan)
+
+    record.launches = 0  # the kernel counts its launches on the module's name
+    spmm_cuda.spmm_csr = spmv_general.spmm_csr = record
+    try:
+        yield seen
+    finally:
+        spmm_cuda.spmm_csr = spmv_general.spmm_csr = real
+
+
+def replay_spmm(label: str, seen: dict) -> tuple:
+    """Replay recorded SpMM launches (`recording_spmm`): each held against
+    its plain version (NEW_TOL), its time beside its bound (each value,
+    column index, row pointer, X and R element once; a multiply-add per
+    entry and column), the plain version's time and `torch.sparse.mm`'s
+    on the same CSR matrix. Returns (a dict of numbers per launch, the
+    largest difference)."""
+    import torch
+
+    from rsparse_tpu_torch.ops.spmm_cuda import _streams, spmm_csr, spmm_plain
+
+    out, max_abs = [], 0.0
+    for vals_csr, X, plan in seen.values():
+        dt, B, m, n, nnz = dname(X.dtype), X.shape[1], plan.m, plan.n, plan.nnz
+        st = _streams(plan, X.device)
+        vals = torch.empty_like(vals_csr)
+        vals[st["perm"]] = vals_csr  # back to CSC order, the plain version's
+        got = spmm_csr(vals_csr, X, plan)
+        ref = spmm_plain(vals, X, plan)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        check(bool(torch.isfinite(got).all()) and rel <= NEW_TOL[dt],
+              f"{label} spmm {dt} B={B}: the kernel disagrees with the plain "
+              f"version: {rel:.3e}")
+        max_abs = max(max_abs, err)
+        ms = cuda_ms(lambda: spmm_csr(vals_csr, X, plan), 10)
+        plain = cuda_ms(lambda: spmm_plain(vals, X, plan), 3)
+        Xc = X.contiguous()
+        A_csr = torch.sparse_csr_tensor(st["row_ptr"], st["col_idx"], vals_csr,
+                                        size=(m, n))
+        try:
+            _, lib_rel = rel_err(torch.sparse.mm(A_csr, Xc), got)
+            lib = cuda_ms(lambda: torch.sparse.mm(A_csr, Xc), 10)
+            lib_txt = f"library_ms={lib:.4f} library_rel_diff={lib_rel:.3e}"
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            lib, lib_txt = None, f"library: none ({type(e).__name__})"
+        item = X.element_size()
+        b_ms, b_by = bound_ms(nnz * (item + 4) + 4 * (m + 1)
+                              + (n + m) * B * item, 2 * nnz * B, dt)
+        print(f"{label}: spmm {dt} B={B} m={m} n={n} nnz={nnz}: max_abs_err="
+              f"{err:.3e} rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms="
+              f"{plain:.4f} bound_ms={b_ms:.5f} ({b_by}) bound_share="
+              f"{b_ms / ms:.5f} {lib_txt}", flush=True)
+        out.append({"path": label, "m": m, "n": n, "B": B, "dtype": dt,
                     "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": lib})
     return out, max_abs
@@ -2646,9 +2743,6 @@ def general_utils(lap, lap_sym, spmv, seed: int, device: str) -> dict:
     device_mf, the same x (1e-12); profile_trace around one spmv_general
     call leaves a trace; sanitize() around one spmv_general call (bit-equal)
     and one cholsol_serve request. Returns the sweep launches by path."""
-    import os
-    import tempfile
-
     import torch
 
     from rsparse_tpu_torch import (chol, cholsol, cholsol_serve, ipvec,
@@ -3128,10 +3222,594 @@ def phase_dist(a, lu_sym, lap, lap_sym, qr: dict, vals: dict, seed: int,
     return by_path, sweeps, max_abs
 
 
+SMALL_GRID = 38  # phase 15: n = 1,444, the largest grid below mf_min_n
+SMALL_K = 8  # phase 15's batched-values instances
+SMALL_WARM = 3  # phase 15's warm calls of each solver
+SERVE_GRID = 128  # examples_torch/serving.py's default Laplacian, n = 16,384
+EXAMPLE_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def host_backend():
+    """The port's exact C++ engine (`config.backend = "host"`) inside."""
+    from rsparse_tpu_torch.config import config
+
+    old = config.backend
+    config.backend = "host"
+    try:
+        yield
+    finally:
+        config.backend = old
+
+
+def small_calls(make_sym, call, route_of, seen: dict) -> tuple:
+    """One cold call of call(s) (the analysis s = make_sym() made inside its
+    wall) and SMALL_WARM warm calls (s reused), each with the launch
+    counts set to 0 just before it and read just after, the card
+    synchronized around it; the first warm call's kernel sweeps recorded
+    into seen (`recording`: the first launch of each plan, kind and shape,
+    its inputs cloned on the card). Returns (s, answers, walls, routes,
+    sweep launches per call)."""
+    import torch
+
+    s, outs, walls, routes, launches = None, [], [], [], []
+    for k in range(1 + SMALL_WARM):
+        warm = k == 1
+        with (recording() if warm else contextlib.nullcontext()) as rec:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            s = make_sym() if s is None else s
+            outs.append(call(s))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(read_counts()["sptrsv_sweep"])
+        routes.append(route_of(s))
+        if warm:
+            seen.update(rec)
+    return s, outs, walls, routes, launches
+
+
+def host_timed(fn) -> tuple:
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def small_line(label: str, n: int, routes, walls, host_s: float,
+               launches, extra: str) -> None:
+    print(f"small {label}: n={n} routes={','.join(map(str, routes))} "
+          f"wall_s={walls_txt(walls)} (cold, then warm) host_engine_s="
+          f"{host_s:.4f} sweep_launches={','.join(map(str, launches))} "
+          f"{extra}", flush=True)
+
+
+def lu_host_x(a, order: int, B: np.ndarray) -> np.ndarray:
+    """The C++ engine's exact LU (a fresh `sqr(a, order)`) and one
+    sequential solve per column of B [n, k]."""
+    from rsparse_tpu_torch import sqr
+    from rsparse_tpu_torch.symbolic import native
+
+    n, nz = a.n, a.nnz()
+    s0 = sqr(a, order, False)
+    f = native.lu_numeric(n, a.p, a.i[:nz], a.x[:nz], s0.q, 1e-6, s0.lnz,
+                          s0.unz)
+    q = np.arange(n) if s0.q is None else np.asarray(s0.q, np.int64)
+    return host_solves(a, B, (*f, q))
+
+
+def lu_route_txt(s) -> str:
+    """s._lu_route, and why a level call went to the host engine: the
+    static pivots refused at plan build (a structural zero on row k of
+    column q[k]) or the plan built and its margins rejected."""
+    from rsparse_tpu_torch.factor.lu_device import LUPlan
+
+    if s._lu_route != "host":
+        return s._lu_route
+    built = isinstance(getattr(s, "plan", None), LUPlan)
+    return "host(margin_rejected)" if built else "host(static_pivots_refused)"
+
+
+def check_lu_routes(label: str, routes, s, order: int) -> None:
+    """Every call below mf_min_n takes the level LU or the host engine; at
+    order -1 (no column permutation) the level plan must have been built
+    and run on the card (a margin rejection is printed as host)."""
+    from rsparse_tpu_torch.factor.lu_device import LUPlan
+
+    check(all(r in ("device_level", "host(margin_rejected)",
+                    "host(static_pivots_refused)") for r in routes),
+          f"small {label}: routes {routes}")
+    if order == -1:
+        check(isinstance(getattr(s, "plan", None), LUPlan),
+              f"small {label}: no level LU plan at order -1")
+
+
+def small_lusol(a, seed: int, device: str, by_path: dict, seen: dict):
+    """lusol at orders 1 and -1, lusol_multi (B[n, 128]) and lusol_vals
+    (K = 8) at order -1 on make_matrix(SMALL_GRID): each against the C++
+    engine (1e-8 relative, residual 1e-10 max(1, max|b|))."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, lusol, lusol_multi, lusol_vals, sqr
+    from rsparse_tpu_torch.ops.plan import col_ids
+
+    n, nz = a.n, a.nnz()
+    rng = np.random.default_rng(seed + 30)
+    for order in (1, -1):
+        b = rng.standard_normal(n)
+        s, xs, walls, routes, launches = small_calls(
+            lambda: sqr(a, order, False),
+            lambda s: lusol(a, b.copy(), order, 1e-6, sym=s, device=device),
+            lu_route_txt, seen)
+        xh, t_host = host_timed(lambda: lu_host_x(a, order, b[:, None])[:, 0])
+        dev = max(float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+                  for x in xs)
+        res = max(float(np.abs(host_residual(a, x) - b).max()) for x in xs)
+        small_line(f"lusol order={order}", n, routes, walls, t_host, launches,
+                   f"host_rel_diff={dev:.3e} residual={res:.3e}")
+        check_lu_routes(f"lusol order={order}", routes, s, order)
+        check(dev <= 1e-8 and res <= 1e-10 * max(1.0, np.abs(b).max()),
+              f"small lusol order={order}: {dev:.3e} from the C++ engine, "
+              f"residual {res:.3e}")
+        by_path[f"small lusol o{order}"] = sum(launches)
+    B = rng.standard_normal((n, NRHS))
+    s, xs, walls, routes, launches = small_calls(
+        lambda: sqr(a, -1, False),
+        lambda s: lusol_multi(a, B, -1, 1e-6, sym=s, device=device),
+        lambda s: s._multi_route, seen)
+    Xh, t_host = host_timed(lambda: lu_host_x(a, -1, B))
+    dev = max(float(np.abs(X - Xh).max() / max(1.0, np.abs(Xh).max()))
+              for X in xs)
+    amul = coo_mul(a, device)[0]
+    res = max(float((amul(torch.as_tensor(X, device=device))
+                     - torch.as_tensor(B, device=device)).abs().max())
+              for X in xs)
+    small_line("lusol_multi order=-1", n, routes, walls, t_host, launches,
+               f"B={NRHS} lu_route={lu_route_txt(s)} host_rel_diff={dev:.3e} "
+               f"residual={res:.3e}")
+    check(set(routes) <= {"device_level", "host"}, f"small lusol_multi: "
+          f"routes {routes}")
+    check_lu_routes("lusol_multi", [lu_route_txt(s)], s, -1)
+    check(dev <= 1e-8 and res <= 1e-10 * max(1.0, np.abs(B).max()),
+          f"small lusol_multi: {dev:.3e} from the C++ engine, residual "
+          f"{res:.3e}")
+    by_path["small lusol_multi"] = sum(launches)
+    diag = a.i[:nz] == col_ids(a.p, n)
+    AxK = np.tile(a.x[:nz], (SMALL_K, 1))
+    AxK[:, diag] *= (1.0 + 0.2 * np.arange(SMALL_K))[:, None]
+    BK = rng.standard_normal((SMALL_K, n))
+    inst = lambda k: Sprs(nz, n, n, a.p, a.i[:nz], AxK[k])
+    s, xs, walls, routes, launches = small_calls(
+        lambda: sqr(a, -1, False),
+        lambda s: lusol_vals(a, AxK, BK, -1, 1e-6, sym=s, device=device),
+        lambda s: s._vals_route, seen)
+    Xh, t_host = host_timed(lambda: np.stack([
+        lu_host_x(inst(k), -1, BK[k][:, None])[:, 0] for k in range(SMALL_K)]))
+    dev = max(max(inst_rel(X, Xh, range(SMALL_K))) for X in xs)
+    res = max(float(np.abs(host_residual(inst(k), X[k]) - BK[k]).max())
+              for X in xs for k in range(SMALL_K))
+    small_line("lusol_vals order=-1", n, routes, walls, t_host, launches,
+               f"K={SMALL_K} lu_route={lu_route_txt(s)} host_rel_diff="
+               f"{dev:.3e} residual={res:.3e}")
+    check(set(routes) == {("per_instance", SMALL_K)}, f"small lusol_vals: "
+          f"routes {routes}")
+    check_lu_routes("lusol_vals", [lu_route_txt(s)], s, -1)
+    check(dev <= 1e-8 and res <= 1e-10 * max(1.0, np.abs(BK).max()),
+          f"small lusol_vals: {dev:.3e} from the C++ engine, residual "
+          f"{res:.3e}")
+    by_path["small lusol_vals"] = sum(launches)
+
+
+def small_cholsol(seed: int, device: str, by_path: dict, seen: dict):
+    """cholsol at orders 0 and 1, cholsol_multi (B[n, 128]: the serving
+    branch a card takes by default, then `serve_mixed = "off"`, the level
+    route) and cholsol_vals (K = 8) at order 1 on the SMALL_GRID
+    Laplacian: every factorization the level Cholesky, every answer 1e-9
+    relative to the C++ engine."""
+    from rsparse_tpu_torch import Sprs, cholsol, cholsol_multi, cholsol_vals
+    from rsparse_tpu_torch import schol
+    from rsparse_tpu_torch.config import config
+    from rsparse_tpu_torch.ops.plan import col_ids
+
+    n, Ap, Ai, Ax = laplacian_5pt(SMALL_GRID)
+    lap = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    nz = lap.nnz()
+    rng = np.random.default_rng(seed + 31)
+
+    def host_x(m, order, B):
+        s0 = schol(m, order)
+        return chol_host_solves(n, chol_host_factor(m, s0),
+                                np.asarray(s0.pinv, np.int64), B)
+
+    def held(label, xs, Xh):
+        dev = max(float(np.abs(X - Xh).max() / max(1.0, np.abs(Xh).max()))
+                  for X in xs)
+        check(dev <= 1e-9, f"small {label}: differs from the C++ engine by "
+              f"{dev:.3e}")
+        return dev
+
+    for order in (0, 1):
+        b = rng.standard_normal(n)
+        s, xs, walls, routes, launches = small_calls(
+            lambda: schol(lap, order),
+            lambda s: cholsol(lap, b.copy(), order, sym=s, device=device),
+            lambda s: s._chol_route, seen)
+        xh, t_host = host_timed(lambda: host_x(lap, order, b[:, None])[:, 0])
+        check(set(routes) == {"device_level"}, f"small cholsol order={order}:"
+              f" routes {routes}")
+        dev = held(f"cholsol order={order}", xs, xh)
+        tail = s.plan.tail
+        small_line(f"cholsol order={order}", n, routes, walls, t_host,
+                   launches, f"lnz={s.lnz} levels={len(s.plan.levels)} "
+                   f"tail_cut={tail.cut if tail else None} tail="
+                   f"{tail.d if tail else None} host_rel_diff={dev:.3e}")
+        by_path[f"small cholsol o{order}"] = sum(launches)
+    B = rng.standard_normal((n, NRHS))
+    old = config.serve_mixed
+    for mode in ("auto", "off"):
+        config.serve_mixed = mode
+        try:
+            s, xs, walls, routes, launches = small_calls(
+                lambda: schol(lap, 1),
+                lambda s: cholsol_multi(lap, B, 1, sym=s, device=device),
+                lambda s: s._multi_route, seen)
+        finally:
+            config.serve_mixed = old
+        Xh, t_host = host_timed(lambda: host_x(lap, 1, B))
+        dev = held(f"cholsol_multi serve_mixed={mode}", xs, Xh)
+        small_line(f"cholsol_multi serve_mixed={mode}", n, routes, walls,
+                   t_host, launches, f"B={NRHS} chol_route={s._chol_route} "
+                   f"host_rel_diff={dev:.3e}")
+        want = "serve" if mode == "auto" else "device_level"
+        check(set(routes) == {want} and s._chol_route == "device_level",
+              f"small cholsol_multi ({mode}): routes {routes}, factor "
+              f"{s._chol_route}")
+        by_path[f"small cholsol_multi {want}"] = sum(launches)
+    diag = lap.i[:nz] == col_ids(lap.p, n)
+    AxK = np.tile(lap.x[:nz], (SMALL_K, 1))
+    AxK[:, diag] *= (1.0 + 0.25 * np.arange(SMALL_K))[:, None]
+    BK = rng.standard_normal((SMALL_K, n))
+    inst = lambda k: Sprs(nz, n, n, lap.p, lap.i[:nz], AxK[k])
+    s, xs, walls, routes, launches = small_calls(
+        lambda: schol(lap, 1),
+        lambda s: cholsol_vals(lap, AxK, BK, 1, sym=s, device=device),
+        lambda s: s._vals_route, seen)
+    Xh, t_host = host_timed(lambda: np.stack([
+        host_x(inst(k), 1, BK[k][:, None])[:, 0] for k in range(SMALL_K)]))
+    dev = max(max(inst_rel(X, Xh, range(SMALL_K))) for X in xs)
+    check(dev <= 1e-9, f"small cholsol_vals: {dev:.3e} from the C++ engine")
+    small_line("cholsol_vals", n, routes, walls, t_host, launches,
+               f"K={SMALL_K} chol_route={s._chol_route} host_rel_diff="
+               f"{dev:.3e}")
+    check(set(routes) == {("per_instance", SMALL_K)}
+          and s._chol_route == "device_level",
+          f"small cholsol_vals: routes {routes}, factor {s._chol_route}")
+    by_path["small cholsol_vals"] = sum(launches)
+
+
+def small_qrsol(seed: int, device: str, by_path: dict, seen: dict):
+    """qrsol on both branches of qr_matrix(seed, SMALL_GRID) (2,888 x
+    1,444, least squares) and its transpose (minimum norm), order 2: the
+    level-scheduled QR on the card, each answer 1e-9 relative to the C++
+    engine, least squares within the gradient gate, minimum norm within
+    its residual. Returns the matrix."""
+    import torch
+
+    from rsparse_tpu_torch import qrsol, sqr, transpose
+    from rsparse_tpu_torch.solve import _qr_ls_host_exact, _qr_mn_host_exact
+
+    a = qr_matrix(seed, grid=SMALL_GRID)
+    aw = transpose(a, device="cpu")
+    amul, atmul = coo_mul(a, device)
+    wmul = coo_mul(aw, device)[0]
+    rng = np.random.default_rng(seed + 32)
+    for label, mat, rows in (("ls", a, a.m), ("mn", aw, aw.m)):
+        b = rng.standard_normal(rows)
+        ref = a if label == "ls" else transpose(aw, device="cpu")
+        s, xs, walls, routes, launches = small_calls(
+            lambda: sqr(ref, 2, True),
+            lambda s: qrsol(mat, b.copy(), 2, sym=s, device=device),
+            lambda s: s._qr_route, seen)
+        s_ref = sqr(ref, 2, True)
+        if label == "ls":
+            xp, t_host = host_timed(
+                lambda: _qr_ls_host_exact(a, s_ref, b, s_ref.q))
+            xh = np.zeros(a.n)
+            xh[np.asarray(s_ref.q, np.int64)] = xp
+        else:
+            xh, t_host = host_timed(
+                lambda: _qr_mn_host_exact(ref, s_ref, b, s_ref.q))
+        dev = max(float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
+                  for x in xs)
+        bd = torch.as_tensor(b, device=device)
+        if label == "ls":
+            gate = max(float(atmul(bd - amul(torch.as_tensor(
+                x, device=device))).abs().max()) for x in xs)
+            scale = 1e-8 * max(1.0, float(atmul(bd).abs().max()))
+        else:
+            gate = max(float((bd - wmul(torch.as_tensor(
+                x, device=device))).abs().max()) for x in xs)
+            scale = 1e-10 * max(1.0, float(np.abs(b).max()))
+        small_line(f"qrsol {label}", mat.n, routes, walls, t_host, launches,
+                   f"m={mat.m} plan_entries={s.plan.plan_entries} "
+                   f"host_rel_diff={dev:.3e} gate={gate:.3e} (limit "
+                   f"{scale:.3e})")
+        check(set(routes) == {"device_level"}, f"small qrsol {label}: routes "
+              f"{routes}")
+        check(dev <= 1e-9 and gate <= scale, f"small qrsol {label}: "
+              f"{dev:.3e} from the C++ engine, gate {gate:.3e}")
+        by_path[f"small qrsol {label}"] = sum(launches)
+    return a
+
+
+def small_factor_qr(a, seed: int, device: str) -> None:
+    """factor.qr directly: on `a` (its plan under PLAN_ENTRY_CAP: the level
+    route on the card), V, R and beta 1e-12 of the C++ engine's
+    `qr_numeric` (relative to max(1, max|ref|)); on rand_csc(2000, 1000,
+    8000) at order 2 (its estimate over the cap: the host export)."""
+    import torch
+
+    from rsparse_tpu_torch import Sprs, qr, sqr
+    from rsparse_tpu_torch.factor.qr_device import (PLAN_ENTRY_CAP,
+                                                    qr_plan_estimate)
+
+    def close(x, ref):
+        x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+        return float(np.abs(x - ref).max(initial=0.0)
+                     / max(1.0, np.abs(ref).max(initial=0.0)))
+
+    p, i, x = rand_csc(2000, 1000, 8000, seed)
+    big = Sprs(len(x), 2000, 1000, p, i, x)
+    for label, m, want in (("level", a, "device_level"),
+                           ("export", big, "host")):
+        s, sh = sqr(m, 2, True), sqr(m, 2, True)
+        est = qr_plan_estimate(m, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nm = qr(m, s, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with host_backend():
+            nh, t_host = host_timed(lambda: qr(m, sh, device="cpu"))
+        errs = [close(nm.l.x[: nm.l.nnz()], nh.l.x[: nh.l.nnz()]),
+                close(nm.u.x[: nm.u.nnz()], nh.u.x[: nh.u.nnz()]),
+                close(nm.b, nh.b)]
+        print(f"small factor.qr {label}: m={m.m} n={m.n} nnz={m.nnz()} "
+              f"estimate={est} cap={PLAN_ENTRY_CAP} route={s._qr_route} "
+              f"wall_s={wall:.4f} host_engine_s={t_host:.4f} vnz={nm.l.nnz()} "
+              f"rnz={nm.u.nnz()} rel_diff_v_r_beta={errs_txt(errs)}",
+              flush=True)
+        check(s._qr_route == want and (est > PLAN_ENTRY_CAP) == (want == "host"),
+              f"small factor.qr {label}: route {s._qr_route}, estimate {est}")
+        check(nm.l.nnz() == nh.l.nnz() and nm.u.nnz() == nh.u.nnz()
+              and max(errs) <= 1e-12, f"small factor.qr {label}: V, R, beta "
+              f"differ from the C++ engine by {errs}")
+
+
+def small_tiny(device: str, readme) -> None:
+    """The README 8 x 8 (`lusol(a, b, 1, 1e-6)`, x[0] =
+    0.2646806068156303 to 1e-12; readme = (a dense, b) as basic.py saved
+    them) and a 1 x 1 system through lusol, cholsol and qrsol on the
+    card."""
+    from rsparse_tpu_torch import Sprs, cholsol, lusol, qrsol
+
+    dense, b = (np.asarray(v).tolist() for v in readme)
+    x = lusol(Sprs.new_from_vec(dense), list(b), 1, 1e-6, device=device)
+    with host_backend():
+        xh = lusol(Sprs.new_from_vec(dense), list(b), 1, 1e-6, device="cpu")
+    err = float(np.abs(x - xh).max())
+    one = Sprs.new_from_vec([[4.0]])
+    ones = [f(one, [2.0], *args, device=device)[0] for f, args in (
+        (lusol, (1, 1e-6)), (cholsol, (1,)), (qrsol, (2,)))]
+    print(f"small readme 8x8: x0={float(x[0])!r} host_diff={err:.3e}; "
+          f"1x1 lusol/cholsol/qrsol={ones}", flush=True)
+    check(abs(float(x[0]) - 0.2646806068156303) <= 1e-12 and err <= 1e-12,
+          f"README 8x8: x[0] = {float(x[0])!r}, {err:.3e} from the C++ engine")
+    check(all(abs(v - 0.5) <= 1e-15 for v in ones), f"1x1: {ones}")
+
+
+def example_child(name: str, report: str, args) -> int:
+    """`chip_smoke.py --example NAME REPORT [ARGS...]`: run
+    examples_torch/NAME as its own `__main__` with ARGS, the launch counts
+    set to 0 just before it and read just after, every sweep and SpMM
+    kernel launch recorded (`recording`, `recording_spmm`); fail unless it
+    ran without importing jax or the JAX package; then replay the recorded
+    launches against the plain versions and write the example's wall, the
+    counts and the replays' numbers to REPORT (JSON)."""
+    import runpy
+
+    import torch
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples_torch", name)
+    with recording() as sweeps, recording_spmm() as spmms:
+        reset_counts()
+        argv, sys.argv = sys.argv, [path, *args]
+        t0 = time.perf_counter()
+        try:
+            runpy.run_path(path, run_name="__main__")
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    bad = [m for m in ("jax", "rsparse_tpu") if m in sys.modules]
+    try:
+        check(not bad, f"example {name} imported {bad}")
+        sweep_recs, sweep_err = replay_sweeps(
+            f"example {name}", {k: v for k, v in sweeps.items()
+                                if v[1].numel()}, lambda B: f"B={B}")
+        spmm_recs, spmm_err = replay_spmm(f"example {name}", spmms)
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    with open(report, "w") as f:
+        json.dump({"wall_s": wall, "counts": counts, "sweeps": sweep_recs,
+                   "sweep_err": sweep_err, "spmm": spmm_recs,
+                   "spmm_err": spmm_err}, f)
+    return 0
+
+
+def run_example(name: str, *args, launcher=()) -> tuple:
+    """examples_torch/<name> in a subprocess on the card through
+    `example_child` (started by `python <launcher...>`), its answers saved
+    to a temporary .npz. Returns (stdout, the saved arrays, the child's
+    report)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "out.npz")
+        report = os.path.join(tmp, "report.json")
+        try:
+            r = subprocess.run(
+                [sys.executable, *launcher, os.path.abspath(__file__),
+                 "--example", name, report, *args, "--save", save],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise SmokeError(f"example {name} outlived {EXAMPLE_TIMEOUT_S} s")
+        for line in r.stdout.splitlines():
+            print(f"example {name}| {line}", flush=True)
+        check(r.returncode == 0, f"example {name} exited {r.returncode}: "
+              f"{r.stderr[-3000:]}")
+        with np.load(save) as z, open(report) as f:
+            return r.stdout, dict(z), json.load(f)
+
+
+def small_examples(seed: int) -> tuple:
+    """The three examples on the card, each in a subprocess
+    (`run_example`), their answers held as the CPU test holds them, here
+    against the C++ engine (`config.backend = "host"`): basic's C exactly
+    and x to 1e-12 (x[0] = 0.2646806068156303); serving's cholsol,
+    cholsol_multi and cholsol_vals answers 1e-9 relative, its residuals
+    1e-9; distributed's (one NCCL rank under torchrun, as its docstring
+    runs it) halo SpMV 1e-12 of gaxpy, dist_cholsol / dist_lusol 1e-9 of
+    cholsol, nnz(A A) that of multiply, the refine_step residual 1e-8.
+    Each example must launch the sweep kernel, and serving and distributed
+    the SpMM kernel too. Returns ({name: the child's report}, the README
+    system (a dense, b) as basic.py saved it)."""
+    from rsparse_tpu_torch import Sprs, add, cholsol, gaxpy, lusol, multiply
+    from rsparse_tpu_torch import schol
+
+    rel = lambda x, r: float(np.abs(np.asarray(x) - np.asarray(r)).max()
+                             / max(1.0, np.abs(np.asarray(r)).max()))
+    reports = {}
+    out, got, reports["basic.py"] = run_example("basic.py")
+    readme = (got["a"], got["b"])
+    with host_backend():
+        a = Sprs(5, 3, 3, p=np.array([0, 2, 3, 5]),
+                 i=np.array([1, 2, 2, 0, 2]), x=np.array([1., 9., 9., 2., 9.]))
+        a2 = Sprs.new_from_vec([[0., 0., 2.], [1., 0., 0.], [9., 9., 9.]])
+        c = multiply(add(a, a2, device="cpu"), a, device="cpu")
+        xh = lusol(Sprs.new_from_vec(got["a"].tolist()), got["b"].tolist(), 1,
+                   1e-6, device="cpu")
+    err = float(np.abs(got["x"] - xh).max())
+    print(f"small example basic.py: x0={float(got['x'][0])!r} host_diff="
+          f"{err:.3e}", flush=True)
+    check(np.array_equal(got["c"], c.to_dense_np()), "basic.py: C differs")
+    check(err <= 1e-12 and abs(got["x"][0] - 0.2646806068156303) <= 1e-12,
+          f"basic.py: x {err:.3e} from the C++ engine")
+
+    out, got, reports["serving.py"] = run_example(
+        "serving.py", "--seed", str(seed), "--grid", str(SERVE_GRID))
+    n, Ap, Ai, Ax = laplacian_5pt(SERVE_GRID)
+    lap = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    with host_backend():
+        Bm, nz = got["Bm"], lap.nnz()
+        errs = [rel(got[k], cholsol(lap, list(Bm[:, c]), 1, device="cpu"))
+                for k, c in (("x1", 0), ("x2", 1))]
+        s0 = schol(lap, 1)
+        Xh = chol_host_solves(n, chol_host_factor(lap, s0),
+                              np.asarray(s0.pinv, np.int64), Bm)
+        errs.append(rel(got["Xm"], Xh))
+        errs += [rel(got["XK"][k], cholsol(Sprs(nz, n, n, lap.p, lap.i[:nz],
+                                                got["AxK"][k]),
+                                           list(got["BK"][k]), 1,
+                                           device="cpu"))
+                 for k in range(len(got["AxK"]))]
+    res = [float(v) for line in out.splitlines()
+           if "residual" in line and not line.startswith("example")
+           for v in re.findall(r"\d\.\d+e[+-]\d+", line)]
+    print(f"small example serving.py: n={n} host_rel_diff={max(errs):.3e} "
+          f"residuals_max={max(res):.3e} ({len(res)})", flush=True)
+    check(max(errs) <= 1e-9, f"serving.py: {max(errs):.3e} from the C++ "
+          "engine")
+    check(len(res) == 7 and max(res) <= 1e-9, f"serving.py: residuals {res}")
+    check("factor checkpoint round-trip ok: True" in out,
+          "serving.py: the factor checkpoint did not round-trip")
+
+    out, got, reports["distributed.py"] = run_example(
+        "distributed.py", "--seed", str(seed), launcher=(
+            "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            "1"))
+    n, Ap, Ai, Ax = laplacian_5pt(24)
+    lap = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    with host_backend():
+        r = gaxpy(lap, list(got["b"]), [0.0] * n, device="cpu")
+        want = cholsol(lap, list(got["b"]), 0, device="cpu")
+        nnz_c = multiply(lap, lap, device="cpu").nnz()
+    errs = [rel(got["r"], r), rel(got["x1"], want), rel(got["x2"], want)]
+    print(f"small example distributed.py: one NCCL rank "
+          f"rel_diff_halo_spmv,dist_cholsol,dist_lusol={errs_txt(errs)} "
+          f"nnz_c={int(got['nnz_c'])} (host {nnz_c}) refine_residual="
+          f"{float(got['refine_residual']):.3e}", flush=True)
+    check(errs[0] <= 1e-12 and max(errs[1:]) <= 1e-9,
+          f"distributed.py: differs from the C++ engine by {errs}")
+    check(int(got["nnz_c"]) == nnz_c and float(got["refine_residual"]) <= 1e-8,
+          "distributed.py: nnz(A A) or the refine_step residual")
+    for name, rep in reports.items():
+        print(f"small example {name}: wall_s={rep['wall_s']:.2f} launches="
+              f"{rep['counts']} replayed_sweeps={len(rep['sweeps'])} "
+              f"replayed_spmm={len(rep['spmm'])}", flush=True)
+        check(rep["counts"]["sptrsv_sweep"] >= 1
+              and (name == "basic.py" or rep["counts"]["spmm_stream"] >= 1),
+              f"example {name}: a kernel of its path did not launch: "
+              f"{rep['counts']}")
+    return reports, readme
+
+
+def phase_small(seed: int, device: str = "cuda"):
+    """Phase 15: the three examples, the routes below mf_min_n at full width
+    for them (SMALL_GRID, n = 1,444), factor.qr on both routes, the README
+    8 x 8 and a 1 x 1 system; every recorded sweep replayed against the
+    plain version. Returns (sweep launches by path, the replays' numbers,
+    the largest sweep difference, SpMM launches by path, the SpMM replays'
+    numbers, the largest SpMM difference)."""
+    import torch
+
+    t0 = time.perf_counter()
+    reports, readme = small_examples(seed)
+    t1 = time.perf_counter()
+    by_path, seen = {}, {}
+    small_lusol(make_matrix(SMALL_GRID, seed), seed, device, by_path, seen)
+    small_cholsol(seed, device, by_path, seen)
+    qa = small_qrsol(seed, device, by_path, seen)
+    small_factor_qr(qa, seed, device)
+    small_tiny(device, readme)
+    t2 = time.perf_counter()
+    seen = {k: v for k, v in seen.items() if v[1].numel()}  # empty: no launch
+    sweeps, max_abs = replay_sweeps("small", seen, lambda B: f"B={B}")
+    torch.cuda.empty_cache()
+    print(f"small: phase_s={time.perf_counter() - t0:.1f} (examples "
+          f"{t1 - t0:.1f}, calls {t2 - t1:.1f}) replayed_sweeps={len(seen)} "
+          f"sweep_launches={by_path}", flush=True)
+    check(all(v >= 1 for v in by_path.values()),
+          f"small: a level route launched no sweep: {by_path}")
+    spmm_paths, spmm_recs, spmm_err = {}, [], 0.0
+    for name, rep in reports.items():
+        by_path[f"example {name}"] = rep["counts"]["sptrsv_sweep"]
+        sweeps += rep["sweeps"]
+        max_abs = max(max_abs, rep["sweep_err"])
+        if rep["counts"]["spmm_stream"]:
+            spmm_paths[f"example {name}"] = rep["counts"]["spmm_stream"]
+        spmm_recs += rep["spmm"]
+        spmm_err = max(spmm_err, rep["spmm_err"])
+    return by_path, sweeps, max_abs, spmm_paths, spmm_recs, spmm_err
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    args = ap.parse_args([] if argv[:1] == ["--example"] else argv)
 
     import torch
 
@@ -3141,6 +3819,8 @@ def main(argv=None) -> int:
     warnings.filterwarnings("ignore", message=".*[Ss]parse")  # beta CSR notes
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv[:1] == ["--example"]:  # phase 15's child process
+        return example_child(argv[1], argv[2], argv[3:])
     from rsparse_tpu_torch.ops import cuda_build, spmm_cuda, spmv, sptrsv_cuda
     from rsparse_tpu_torch.symbolic import native
 
@@ -3184,6 +3864,8 @@ def main(argv=None) -> int:
          opchain, general_err) = phase_general(lap, lap_sym, args.seed)
         dist_paths, dist_sweeps_, dist_err = phase_dist(
             a, lu_sym, lap, lap_sym, qr, vals, args.seed)
+        (small_paths, small_sweeps, small_err, small_spmm_paths, small_spmm,
+         small_spmm_err) = phase_small(args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3195,27 +3877,30 @@ def main(argv=None) -> int:
     by_path = {"lusol_serve": launches, "cholsol_serve": serve_launches,
                "cholsol": cholsol_launches, "lusol": lusol_launches,
                "qrsol": qr_launches, **multi_paths, **vals_paths,
-               **general_sweeps, **dist_paths}
+               **general_sweeps, **dist_paths, **small_paths}
     print(f"sptrsv_sweep launches by main path: {by_path}; the L' (kind 2) "
           f"sweep: {kind2}", flush=True)
     sweep = entry("sptrsv_sweep", "sptrsv.cu",
                   "rsparse_tpu/ops/sptrsv_pallas.py:191",
                   sum(by_path.values()),
                   max(max_abs, kind2_err, r_err, multi_err, vals_err,
-                      dist_err), main_ms)
+                      dist_err, small_err), main_ms)
     sweep["launches_by_path"] = by_path
     sweep["qr_r_sweeps"] = r_sweeps
     sweep["multi_sweeps"] = multi_sweeps
     sweep["vals_sweeps"] = vals_sweeps
     sweep["dist_sweeps"] = dist_sweeps_
+    sweep["small_sweeps"] = small_sweeps
     spmm_paths = {"gaxpy_multi": spmm_counts["spmm_stream"],
-                  "spmv_general": general_launches}
+                  "spmv_general": general_launches, **small_spmm_paths}
     spmm_entry = entry("spmm_stream", "spmm.cu",
                        "rsparse_tpu/ops/spmm_pallas.py:105",
-                       sum(spmm_paths.values()), max(spmm_err, general_err),
+                       sum(spmm_paths.values()),
+                       max(spmm_err, general_err, small_spmm_err),
                        spmm[("float64", NRHS)])
     spmm_entry["launches_by_path"] = spmm_paths
     spmm_entry["spmv_general"] = spmv_general_recs
+    spmm_entry["example_spmm"] = small_spmm
     print(f"general: spgemm_general {spgemm}; chain {opchain}", flush=True)
     print(json.dumps({"kernels": [
         sweep,

@@ -60,6 +60,14 @@ def device_values(nm: Nmrc, which: str, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(t.x[: t.nnz()], np.float64), device=dev)
 
 
+def require_square(a: Sprs, name: str) -> None:
+    """Raise ValueError unless `a` is square: an LU entry point checks
+    before the C++ engine, which reads past its buffers on a non-square
+    matrix."""
+    if a.m != a.n:
+        raise ValueError(f"{name} needs a square matrix, got {a.m}x{a.n}")
+
+
 def _values_fp(a: Sprs):
     """Cheap value fingerprint for caches keyed on A's values (sym reuse
     with refreshed values must rebuild them; O(nnz) hash per call)."""
@@ -131,7 +139,8 @@ def lu(a: Sprs, s: Symb, tol: float, *, device="cuda") -> Nmrc:
 
     Factors in float64 on `device`; L and U values come back as float64
     numpy arrays, like the patterns and pinv. Raises NoPivotError if no
-    pivot can be found. `s._lu_route` records the route taken.
+    pivot can be found, ValueError if A is not square. `s._lu_route`
+    records the route taken.
 
     >>> from rsparse_tpu_torch import Sprs, sqr
     >>> from rsparse_tpu_torch.factor import lu
@@ -140,6 +149,7 @@ def lu(a: Sprs, s: Symb, tol: float, *, device="cuda") -> Nmrc:
     >>> [int(v) for v in nm.pinv]  # row 1 (|2| > |1|) pivots first
     [1, 0]
     """
+    require_square(a, "lu")
     n = a.n
     dev = torch.device(device)
     if config.backend == "host":

@@ -78,15 +78,31 @@ class QRPlan:
 PLAN_ENTRY_CAP = 300_000_000
 
 
+def _pattern(a: Sprs, s: Symb):
+    """(q, V and R patterns, the work estimate) of the QR of `a` under s."""
+    q = np.asarray(s.q, dtype=np.int64) if s.q is not None else None
+    Vp, Vi, Rp, Ri = native.qr_pattern(
+        a.m, a.n, a.p, a.i[: a.nnz()], q, s.parent, s.pinv, s.m2,
+        s.lnz + 8, s.unz + a.n + 8)
+    rlen = np.diff(Rp) - 1
+    est = int(np.sum((np.diff(Vp) + rlen) * np.maximum(rlen, 1)))
+    return q, Vp, Vi, Rp, Ri, est
+
+
+def qr_plan_estimate(a: Sprs, s: Symb) -> int:
+    """The work estimate `build_qr_plan` holds to PLAN_ENTRY_CAP: the sum
+    over columns of |support| * reflectors applied."""
+    return _pattern(a, s)[-1]
+
+
 def build_qr_plan(a: Sprs, s: Symb, level_batch: int = 1024) -> Optional[QRPlan]:
     """Static per-level gather/scatter maps (host, once per pattern); None
     when the work estimate exceeds PLAN_ENTRY_CAP."""
     m, n = a.m, a.n
     m2 = s.m2
-    q = np.asarray(s.q, dtype=np.int64) if s.q is not None else None
-    Vp, Vi, Rp, Ri = native.qr_pattern(
-        m, n, a.p, a.i[: a.nnz()], q, s.parent, s.pinv, m2,
-        s.lnz + 8, s.unz + n + 8)
+    q, Vp, Vi, Rp, Ri, est = _pattern(a, s)
+    if est > PLAN_ENTRY_CAP:
+        return None
     vnz, rnz = int(Vp[n]), int(Rp[n])
     # dependency levels: column k applies the reflectors j in R(:, k)'s
     # off-diagonal (rows < k, so one ascending pass settles them)
@@ -96,10 +112,6 @@ def build_qr_plan(a: Sprs, s: Symb, level_batch: int = 1024) -> Optional[QRPlan]
         if len(deps):
             level[k] = int(level[deps].max()) + 1
     vlen = np.diff(Vp)
-    rlen = np.diff(Rp) - 1
-    est = int(np.sum((vlen + rlen) * np.maximum(rlen, 1)))
-    if est > PLAN_ENTRY_CAP:
-        return None
 
     pinv_rows = np.asarray(s.pinv[:m2], dtype=np.int64)
     supports = []  # per column: sorted support rows
@@ -243,4 +255,5 @@ def qr_device(a: Sprs, s: Symb, device="cuda") -> Tuple[np.ndarray, ...]:
             host(Rx, plan.rnz), host(Bt, plan.n), False)
 
 
-__all__ = ["QRPlan", "QRLevel", "PLAN_ENTRY_CAP", "build_qr_plan", "qr_device"]
+__all__ = ["QRPlan", "QRLevel", "PLAN_ENTRY_CAP", "build_qr_plan",
+           "qr_plan_estimate", "qr_device"]

@@ -47,6 +47,19 @@ def l2_bytes(device: str) -> int:
     return int(torch.cuda.get_device_properties(device).L2_cache_size)
 
 
+def require_card(device):
+    """`device` as a torch.device; a RuntimeError for a CUDA device when
+    torch sees no card. Nothing falls back to the CPU: a caller that wants
+    the CPU names it."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device (pass "
+                           "the CPU explicitly to run there)")
+    return dev
+
+
 def source(name: str) -> str:
     """Path of the kernel source `csrc/<name>.cu`."""
     return os.path.join(CSRC, f"{name}.cu")

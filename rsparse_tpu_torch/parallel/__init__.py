@@ -49,6 +49,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..data import Sprs
 from ..errors import NotPositiveDefiniteError
+from ..ops.cuda_build import require_card
 from ..ops.plan import col_ids, device_cache
 
 __all__ = [
@@ -73,10 +74,8 @@ TIMEOUT_S = 300
 def _backend(device: str) -> str:
     """The process-group backend for `device`: NCCL on the card, gloo on
     the CPU. No card for "cuda" raises: nothing falls back to gloo."""
-    kind = torch.device(device).type
+    kind = require_card(device).type
     if kind == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("make_mesh(device='cuda'): no CUDA device")
         return "nccl"
     if kind == "cpu":
         return "gloo"
@@ -662,14 +661,13 @@ def dist_cholsol_vals(a: Sprs, Ax, B, mesh: DeviceMesh, order: int = 0, *,
     Ax: [K, nnz(a)]; B: [K, n] or [n] broadcast. Returns X [K, n] (host
     array, equal on every rank). Raises NotPositiveDefiniteError naming
     the failing instances, on every rank."""
+    from ..factor import require_square
     from ..solve import _chol_mf_plan, _instance, _vals_batch, _vals_mf
     from ..solve import cholsol_vals
     from ..symbolic import schol
 
+    require_square(a, "cholsol_vals")
     n = a.n
-    if a.m != n:
-        raise ValueError(f"cholsol_vals needs a square matrix, got "
-                         f"{a.m}x{n}")
     AxK, Bm = _vals_batch(a, Ax, B, n, "n")
     K = AxK.shape[0]
     a0 = _instance(a, AxK, 0)
@@ -695,13 +693,13 @@ def dist_lusol_vals(a: Sprs, Ax, B, mesh: DeviceMesh, order: int = 1,
     The multifrontal plan is built once from instance 0's values on every
     rank, as the JAX package's. Below the multifrontal tier every rank
     solves all K by `lusol`."""
+    from ..factor import require_square
     from ..solve import _instance, _lu_mf_plan, _vals_batch, _vals_mf
     from ..solve import lusol_vals
     from ..symbolic import sqr
 
+    require_square(a, "lusol_vals")
     n = a.n
-    if a.m != n:
-        raise ValueError(f"lusol_vals needs a square matrix, got {a.m}x{n}")
     AxK, Bm = _vals_batch(a, Ax, B, n, "n")
     K = AxK.shape[0]
     a0 = _instance(a, AxK, 0)

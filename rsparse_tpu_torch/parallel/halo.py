@@ -552,11 +552,13 @@ def dist_lusol(a: Sprs, b, mesh, order: int = 1, tol: float = 1e-6,
     with threshold pivoting at or above `config.mf_min_n`) on every rank's
     device, then both triangular sweeps as halo-sharded SPMD solves on the
     factors' device copies. Semantics match single-process `lusol`
-    (reference src/lib.rs:672-683). Returns x as a host array."""
+    (reference src/lib.rs:672-683). Returns x as a host array; a
+    non-square A raises ValueError before the mesh is read."""
     from .. import ops
-    from ..factor import device_values, lu
+    from ..factor import device_values, lu, require_square
     from ..symbolic import sqr
 
+    require_square(a, "dist_lusol")
     dev = _device(mesh)
     n = a.n
     s = sqr(a, order, False)

@@ -51,7 +51,7 @@ import torch
 from . import ops
 from .config import config
 from .data import Nmrc, Sprs, Symb
-from .factor import _card, _values_fp, device_values
+from .factor import _card, _values_fp, device_values, require_square
 from .ops.plan import col_ids, device_cache
 from .ops.sptrsv_cuda import sptrsv_multi
 from .symbolic import native
@@ -639,10 +639,11 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
     `h.last_residual` holds the final residual max, `h.factor_route` says
     which factors the handle serves ("device_mf", "device_level", "host" or
     "host_exact" after a failed factor-quality probe), and `h.build_seconds`
-    the wall time of each build phase."""
+    the wall time of each build phase. A non-square A raises ValueError."""
     from .factor import lu
     from .symbolic import sqr
 
+    require_square(a, "lusol_serve")
     dev = torch.device(device)
     t0 = time.perf_counter()
     n = a.n
@@ -880,7 +881,7 @@ def _refined(rmax: float, b: np.ndarray, xmax: float) -> bool:
 def lusol(a: Sprs, b, order: int = 1, tol: float = 1e-6,
           *, sym: Optional[Symb] = None, device="cuda"):
     """x = A\\b via LU with partial pivoting; b overwritten with the solution
-    (reference src/lib.rs:672-683).
+    (reference src/lib.rs:672-683). A non-square A raises ValueError.
 
     `sym` (extension): reuse a previous `sqr(a, order, False)` analysis
     (and its device plans) across solves with the same sparsity pattern.
@@ -896,6 +897,7 @@ def lusol(a: Sprs, b, order: int = 1, tol: float = 1e-6,
     from .factor import lu
     from .symbolic import sqr
 
+    require_square(a, "lusol")
     n = a.n
     with phase_timer("lusol.symbolic", nnz=a.nnz()):
         s = sym if sym is not None else sqr(a, order, False)
@@ -1532,10 +1534,12 @@ def lusol_multi(a: Sprs, B, order: int = 1, tol: float = 1e-6, *,
     does. Otherwise `lu` on `device` (the level LU, or the host engine
     when its static pivots are rejected) and two f64 sweeps over all
     columns. `s._multi_route` reads "device_mf", "host_exact",
-    "device_level" or "host". No reference counterpart."""
+    "device_level" or "host". A non-square A raises ValueError. No
+    reference counterpart."""
     from .factor import lu
     from .symbolic import sqr
 
+    require_square(a, "lusol_multi")
     s = sym if sym is not None else sqr(a, order, False)
     Bm = np.asarray(B, dtype=np.float64)
     if config.backend != "host":
@@ -1719,10 +1723,8 @@ def cholsol_vals(a: Sprs, Ax, B, order: int = 0, *,
     from .factor.frontal import _chol_mf_values, _solve_mf_dev
     from .symbolic import schol
 
+    require_square(a, "cholsol_vals")
     n = a.n
-    if a.m != n:
-        raise ValueError(f"cholsol_vals needs a square matrix, got "
-                         f"{a.m}x{n}")
     AxK, Bm = _vals_batch(a, Ax, B, n, "n")
     K = AxK.shape[0]
     a0 = _instance(a, AxK, 0)
@@ -1796,9 +1798,8 @@ def lusol_vals(a: Sprs, Ax, B, order: int = 1, tol: float = 1e-6, *,
     from .factor.frontal_lu import _attach_inners, _lu_mf_values
     from .symbolic import sqr
 
+    require_square(a, "lusol_vals")
     n, nz = a.n, a.nnz()
-    if a.m != n:
-        raise ValueError(f"lusol_vals needs a square matrix, got {a.m}x{n}")
     AxK, Bm = _vals_batch(a, Ax, B, n, "n")
     K = AxK.shape[0]
     a0 = _instance(a, AxK, 0)
