@@ -2761,7 +2761,9 @@ def general_utils(lap, lap_sym, spmv, seed: int, device: str) -> dict:
         f"{k}: calls={v['calls']} s={v['seconds']:.4f} work={v['work']} "
         f"work_per_s={v['work_per_s'] if v['work_per_s'] is None else format(v['work_per_s'], '.4e')}"
         for k, v in sorted(met.items())), flush=True)
-    check(lap_sym._chol_route == "device_mf" and set(met) == {
+    # beside the JAX package's phases, the port's own spans of the route
+    port_only = {"factor.plan", "factor.numeric", "refine.readback"}
+    check(lap_sym._chol_route == "device_mf" and set(met) - port_only == {
         "cholsol.symbolic", "cholsol.oneshot"},
         f"utils: cholsol recorded {sorted(met)} on route {lap_sym._chol_route}")
     scale = max(1.0, float(np.abs(x).max()))

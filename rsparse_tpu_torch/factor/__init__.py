@@ -21,6 +21,7 @@ import torch
 from ..config import config
 from ..data import Nmrc, Sprs, Symb
 from ..symbolic import native
+from ..utils.profiling import device_barrier, phase_timer
 from .chol_device import chol_device
 from .lu_device import lu_device
 from .qr_device import qr_device
@@ -120,10 +121,14 @@ def chol(a: Sprs, s: Symb, *, device="cuda") -> Nmrc:
 
         mfp = getattr(s, "_mf_plan", "unset")
         if isinstance(mfp, str):
-            mfp = build_mf_plan(c, s) if n >= config.mf_min_n else None
+            mfp = None
+            if n >= config.mf_min_n:
+                with phase_timer("factor.plan"):
+                    mfp = build_mf_plan(c, s)
             s._mf_plan = mfp
         if mfp is not None:
-            Lp, Li, Lx = chol_mf(c, s, mfp, dev)
+            with phase_timer("factor.numeric", barrier=device_barrier(dev)):
+                Lp, Li, Lx = chol_mf(c, s, mfp, dev)
             s._chol_route = "device_mf"
         else:
             Lp, Li, Lx = chol_device(c, s, dev)

@@ -42,6 +42,7 @@ from ..data import Sprs, Symb
 from ..errors import NoPivotError
 from ..ops.plan import device_cache
 from ..symbolic import native
+from ..utils.profiling import device_barrier, phase_timer
 
 
 def _lookup(keys_sorted: np.ndarray, order: np.ndarray, qkeys: np.ndarray) -> np.ndarray:
@@ -412,12 +413,14 @@ def lu_device(a: Sprs, s: Symb, tol: float, device):
         mfp = getattr(s, "_mf_lu_plan", "unset")
         if mfp == "unset":
             try:
-                mfp = build_lu_mf_plan(a, s)
+                with phase_timer("factor.plan"):
+                    mfp = build_lu_mf_plan(a, s)
             except (NoPivotError, ValueError):
                 mfp = None
             s._mf_lu_plan = mfp
         if mfp is not None:
-            out = lu_mf(a, s, mfp, tol, device)
+            with phase_timer("factor.numeric", barrier=device_barrier(device)):
+                out = lu_mf(a, s, mfp, tol, device)
             if out is not None:
                 s._lu_route = "device_mf"
                 return out

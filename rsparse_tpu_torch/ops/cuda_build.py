@@ -36,6 +36,8 @@ BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "_build"))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+KERNELS = ("sptrsv", "spmm", "spmv_dia")  # the sources under csrc/
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -118,11 +120,16 @@ def compile_all(names: Iterable[str]) -> Dict[str, float]:
 
 
 def load(name: str, declare: Callable[[ctypes.CDLL], None]) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu` (built first if missing);
+    """The loaded library of `csrc/<name>.cu` (built first if missing, in a
+    `build.kernel` span whose attribute is the name's index in KERNELS);
     `declare(lib)` sets its functions' argtypes and restype once."""
     lib = _LIBS.get(name)
     if lib is None:
-        compile_all([name])
+        if not os.path.exists(_so_path(name)):
+            from ..utils.profiling import phase_timer
+
+            with phase_timer("build.kernel", attr=KERNELS.index(name)):
+                compile_all([name])
         lib = ctypes.CDLL(_so_path(name))
         declare(lib)
         _LIBS[name] = lib

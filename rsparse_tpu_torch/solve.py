@@ -42,7 +42,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -55,7 +54,7 @@ from .factor import _card, _values_fp, device_values, require_square
 from .ops.plan import col_ids, device_cache
 from .ops.sptrsv_cuda import sptrsv_multi
 from .symbolic import native
-from .utils.profiling import phase_timer
+from .utils.profiling import device_barrier, phase_timer
 
 __all__ = [
     "TriPlan", "DenseSplit", "tri_plan",
@@ -467,10 +466,17 @@ def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor,
 
 def _amax(t: torch.Tensor):
     """max|t| over the last two dimensions, read back: a float, or an array
-    [K] for K instances (t [K, rows, B])."""
-    v = (t.abs().amax((-2, -1)) if t.dim() >= 2 else t.abs().amax())
-    v = v.cpu().numpy()
+    [K] for K instances (t [K, rows, B]). Each call is one host-device
+    synchronization: a `refine.readback` span, counted on
+    `_amax.readbacks`."""
+    _amax.readbacks += 1
+    with phase_timer("refine.readback"):
+        v = (t.abs().amax((-2, -1)) if t.dim() >= 2 else t.abs().amax())
+        v = v.cpu().numpy()
     return float(v) if v.ndim == 0 else v
+
+
+_amax.readbacks = 0  # host reads of max|.| (refinement's synchronizations)
 
 
 def _host_spmm_t(a: Sprs, R: np.ndarray) -> np.ndarray:
@@ -564,12 +570,14 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     Mx_d = torch.as_tensor(np.asarray(Mx, np.float64), device=dev)
 
     def solve_full(R):
-        Rp = R if pin_d is None else torch.zeros_like(R).index_copy_(0, pin_d, R)
-        Z = Rp.to(torch.float32)
-        for plan, v32, kind in sweeps:  # X^T views between the sweeps
-            Z = sptrsv_multi(v32, Z, plan, kind, contiguous=False)
-        Xs = Z.to(torch.float64, memory_format=torch.contiguous_format)
-        return Xs if pout_d is None else Xs[pout_d]
+        with phase_timer("serve.sweeps"):
+            Rp = (R if pin_d is None
+                  else torch.zeros_like(R).index_copy_(0, pin_d, R))
+            Z = Rp.to(torch.float32)
+            for plan, v32, kind in sweeps:  # X^T views between the sweeps
+                Z = sptrsv_multi(v32, Z, plan, kind, contiguous=False)
+            Xs = Z.to(torch.float64, memory_format=torch.contiguous_format)
+            return Xs if pout_d is None else Xs[pout_d]
 
     amul = _coo_amul(Mi_d, Mj_d, Mx_d, m)  # A
     atmul = _coo_amul(Mj_d, Mi_d, Mx_d, n)  # A' (rectangular only)
@@ -577,12 +585,21 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     correct = solve_full if tall else lambda r: atmul(solve_full(r))
 
     def handle(B):
-        B64 = torch.as_tensor(B, device=dev).to(torch.float64)
-        if m is not None and tall:  # least squares: the gradient A'(B - AX)
-            resid, first = lambda X: atmul(B64 - amul(X)), atmul(B64)
-        else:  # A X = B; the minimum norm's X = A'(AA')^-1 B
-            resid, first = lambda X: B64 - amul(X), None
-        X, rmax = _refine(correct, resid, B64, refine, first)
+        shape = np.shape(B)
+        with phase_timer("serve.request", request=True,
+                         attr=shape[-1] if len(shape) > 1 else 1):
+            B64 = torch.as_tensor(B, device=dev).to(torch.float64)
+            # least squares: the gradient A'(B - AX); else A X = B (the
+            # minimum norm's X = A'(AA')^-1 B)
+            lsq = m is not None and tall
+
+            def resid(X):
+                with phase_timer("serve.residual"):
+                    R = B64 - amul(X)
+                    return atmul(R) if lsq else R
+
+            X, rmax = _refine(correct, resid, B64, refine,
+                              atmul(B64) if lsq else None)
         handle.last_residual = rmax
         return X
 
@@ -645,26 +662,51 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
 
     require_square(a, "lusol_serve")
     dev = torch.device(device)
-    t0 = time.perf_counter()
     n = a.n
-    s = sym if sym is not None else sqr(a, order, False)
-    t1 = time.perf_counter()
-    nm = lu(a, s, tol, device=dev)
+    with phase_timer("serve.build.analysis") as t_analysis:
+        s = sym if sym is not None else sqr(a, order, False)
+    with phase_timer("serve.build.factor") as t_factor:
+        nm = lu(a, s, tol, device=dev)
+        _synchronize(dev)
+    with phase_timer("serve.build.probe") as t_probe:
+        lx, ux, pin, route, p0, p1 = _lu_probed(a, s, nm, tol, dev)
+    with phase_timer("serve.build.handle") as t_handle:
+        # out[q[i]] = xs[i]  <=>  out[j] = xs[qinv[j]]
+        pout = (np.argsort(np.asarray(s.q, np.int64))
+                if s.q is not None else None)
+        nz = a.nnz()
+        h = _make_serve_handle(n, [(p0, lx, 0), (p1, ux, 1)], pin, pout,
+                               a.i[:nz], col_ids(a.p, n),
+                               np.asarray(a.x[:nz], np.float64), refine, dev)
+        _synchronize(dev)
+    h.sym = s
+    h.factor_route = route
+    h.build_seconds = {"analysis": t_analysis.seconds,
+                       "factor": t_factor.seconds,
+                       "probe": t_probe.seconds, "handle": t_handle.seconds}
+    return h
+
+
+def _synchronize(dev: torch.device) -> None:
+    """Wait for `dev`'s queued work (a CUDA device; nothing elsewhere)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
+
+
+def _lu_probed(a: Sprs, s: Symb, nm: Nmrc, tol: float, dev):
+    """The LU serve handle's factor-quality probe. Static-pivot element
+    growth can leave the MF factors too weak for the handle's refinement
+    to contract (it stalls at ~growth*eps). One f64 sweep pair on a probe
+    RHS measures the factor's actual solve accuracy; if it misses, the
+    chain is rebuilt from the host engine's exact partial-pivoting factors
+    (the same escape the lusol driver uses, moved to build time so every
+    h(B) call is accurate). Returns (L's and U's values on dev, the row
+    permutation, the route, L's and U's sweep plans)."""
+    n, nz = a.n, a.nnz()
     lmat, umat = nm.l, nm.u
     lx, ux = device_values(nm, "l", dev), device_values(nm, "u", dev)
     route = s._lu_route
     pin = np.asarray(nm.pinv, np.int64) if nm.pinv is not None else None
-    nz = a.nnz()
-    # Factor-quality probe: static-pivot element growth can leave the MF
-    # factors too weak for the handle's refinement to contract (it stalls
-    # at ~growth*eps). One f64 sweep pair on a probe RHS measures the
-    # factor's actual solve accuracy; if it misses, rebuild the chain from
-    # the host engine's exact partial-pivoting factors (the same escape the
-    # lusol driver uses, moved to build time so every h(B) call is
-    # accurate).
     rngp = np.random.default_rng(0)
     bp = rngp.standard_normal((n, 2))
     zp = np.zeros_like(bp)
@@ -691,23 +733,7 @@ def lusol_serve(a: Sprs, order: int = 1, tol: float = 1e-6, *,
         pin = np.asarray(pv, np.int64)
         route = "host_exact"
         p0, p1 = tri_plan(lmat, 0), tri_plan(umat, 1)
-    t3 = time.perf_counter()
-    # out[q[i]] = xs[i]  <=>  out[j] = xs[qinv[j]]
-    pout = (np.argsort(np.asarray(s.q, np.int64))
-            if s.q is not None else None)
-    Mi = a.i[:nz]
-    Mj = col_ids(a.p, n)
-    Mx = np.asarray(a.x[:nz], np.float64)
-    h = _make_serve_handle(n, [(p0, lx, 0), (p1, ux, 1)], pin, pout, Mi, Mj,
-                           Mx, refine, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t4 = time.perf_counter()
-    h.sym = s
-    h.factor_route = route
-    h.build_seconds = {"analysis": t1 - t0, "factor": t2 - t1,
-                       "probe": t3 - t2, "handle": t4 - t3}
-    return h
+    return lx, ux, pin, route, p0, p1
 
 
 def _chol_serve_handle(a: Sprs, s: Symb, nm: Nmrc, refine: int, dev):
@@ -743,20 +769,19 @@ def cholsol_serve(a: Sprs, order: int = 0, *, sym: Optional[Symb] = None,
     from .symbolic import schol
 
     dev = torch.device(device)
-    t0 = time.perf_counter()
-    s = sym if sym is not None else schol(a, order)
-    t1 = time.perf_counter()
-    nm = chol(a, s, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
-    h = _chol_serve_handle(a, s, nm, refine, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with phase_timer("serve.build.analysis") as t_analysis:
+        s = sym if sym is not None else schol(a, order)
+    with phase_timer("serve.build.factor") as t_factor:
+        nm = chol(a, s, device=dev)
+        _synchronize(dev)
+    with phase_timer("serve.build.handle") as t_handle:
+        h = _chol_serve_handle(a, s, nm, refine, dev)
+        _synchronize(dev)
     h.sym = s
     h.factor_route = s._chol_route
-    h.build_seconds = {"analysis": t1 - t0, "factor": t2 - t1,
-                       "handle": time.perf_counter() - t2}
+    h.build_seconds = {"analysis": t_analysis.seconds,
+                       "factor": t_factor.seconds,
+                       "handle": t_handle.seconds}
     return h
 
 
@@ -836,7 +861,8 @@ def _lu_one_shot(a: Sprs, s, Bm: np.ndarray, tol: float, steps: int = 10,
     mfp = _lu_mf_plan(a, s)
     if mfp is None:
         return None
-    out = lu_mf(a, s, mfp, tol, torch.device(device))
+    with phase_timer("factor.numeric", barrier=device_barrier(device)):
+        out = lu_mf(a, s, mfp, tol, torch.device(device))
     if out is None:
         s._static_rejected = True
         return None
@@ -853,7 +879,8 @@ def _lu_mf_plan(a: Sprs, s):
     mfp = getattr(s, "_mf_lu_plan", "unset")
     if isinstance(mfp, str):
         try:
-            mfp = build_lu_mf_plan(a, s)
+            with phase_timer("factor.plan"):
+                mfp = build_lu_mf_plan(a, s)
         except (NoPivotError, ValueError):
             mfp = None
         s._mf_lu_plan = mfp
@@ -912,13 +939,14 @@ def lusol(a: Sprs, b, order: int = 1, tol: float = 1e-6,
                 out = _writable(X[:, 0])
                 _writeback(b, out)
                 return out
-    with phase_timer("lusol.factor", nnz=a.nnz()):
+    barrier = device_barrier(device)
+    with phase_timer("lusol.factor", nnz=a.nnz(), barrier=barrier):
         if shot is not None:  # growth or conditioning the pivot margin missed
             nm = _host_lu(a, s, tol)
             s._lu_route = "host_exact"
         else:
             nm = lu(a, s, tol, device=device)
-    with phase_timer("lusol.solve", nnz=s.lnz + s.unz):
+    with phase_timer("lusol.solve", nnz=s.lnz + s.unz, barrier=barrier):
         x = np.zeros(n, dtype=np.float64)
         ops.ipvec(n, nm.pinv, bb, x)  # x = P*b
         x = _tri_solve(nm.l, x, 0, device=device,
@@ -1034,7 +1062,8 @@ def _chol_one_shot(a: Sprs, s, Bm: np.ndarray, steps: int = 10,
     if mfp is None:
         return None
     dev = _card(device)  # the factors' device
-    _chol_mf_factor(_chol_values(a, s, mfp, dev)[0], mfp)
+    with phase_timer("factor.numeric", barrier=device_barrier(dev)):
+        _chol_mf_factor(_chol_values(a, s, mfp, dev)[0], mfp)
     s._chol_route = "device_mf"
     return _chol_mf_solve_fused(a, s, mfp, Bm, steps)
 
@@ -1049,7 +1078,8 @@ def _chol_mf_plan(a: Sprs, s):
     mfp = getattr(s, "_mf_plan", "unset")
     if isinstance(mfp, str):
         c = _symperm_host(a, s.pinv) if s.pinv is not None else a
-        mfp = s._mf_plan = build_mf_plan(c, s)
+        with phase_timer("factor.plan"):
+            mfp = s._mf_plan = build_mf_plan(c, s)
     return mfp
 
 
@@ -1104,13 +1134,14 @@ def cholsol(a: Sprs, b, order: int = 0, *, sym: Optional[Symb] = None,
                 out = _writable(X[:, 0])
                 _writeback(b, out)
                 return out
-    with phase_timer("cholsol.factor", nnz=s.lnz):
+    barrier = device_barrier(device)
+    with phase_timer("cholsol.factor", nnz=s.lnz, barrier=barrier):
         if shot is not None:  # the device tree cannot recover this system
             nm = _host_chol(a, s)
             s._chol_route = "host_exact"
         else:
             nm = chol(a, s, device=device)
-    with phase_timer("cholsol.solve", nnz=2 * s.lnz):
+    with phase_timer("cholsol.solve", nnz=2 * s.lnz, barrier=barrier):
         x = np.zeros(n, dtype=np.float64)
         ops.ipvec(n, s.pinv, bb, x)  # x = P*b
         lx = device_values(nm, "l", device)
