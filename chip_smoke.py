@@ -585,8 +585,8 @@ def phase_kernels(a, seed: int, device: str = "cuda"):
         t1 = time.perf_counter()
         _ = plan.dense  # the split, found at its first read
         secs = (t1 - t0, time.perf_counter() - t1)
-        print_schedule(plan, kind, launch_config(plan, torch.float32, device),
-                       secs)
+        print_schedule(plan, kind, launch_config(plan, torch.float32, device,
+                                                 kind, NRHS), secs)
         for dtype in (torch.float32, torch.float64):
             tx = torch.as_tensor(t.x[: t.nnz()], dtype=dtype, device=device)
             for B in (NRHS, 2):
@@ -652,7 +652,7 @@ def phase_global_variant(seed: int, device: str = "cuda") -> float:
     for kind in (0, 1, 2, 3):
         t = lo if kind in (0, 2) else up
         plan = tri_plan(t, kind)
-        cfg = launch_config(plan, torch.float32, device)
+        cfg = launch_config(plan, torch.float32, device, kind, NRHS)
         print_schedule(plan, kind, cfg)
         check(cfg["variant"] == "global", f"global variant: n = {t.n} took "
               f"the {cfg['variant']} variant")
@@ -1324,7 +1324,8 @@ def replay_sweeps(label: str, seen: dict, what) -> tuple:
     for vals, X, plan, kind in seen.values():
         B, dt = X.shape[-1], dname(vals.dtype)
         K = X.shape[0] if X.dim() == 3 else 1
-        print_schedule(plan, kind, launch_config(plan, vals.dtype, X.device))
+        print_schedule(plan, kind, launch_config(plan, vals.dtype, X.device,
+                                                 kind, B, K=K))
         got = sptrsv_multi(vals, X, plan, kind)
         ref = sptrsv_plain_multi(vals, X, plan, kind)
         torch.cuda.synchronize()
@@ -1519,7 +1520,8 @@ def phase_cholsol_serve(a, s, seed: int, device: str = "cuda"):
           f"cholsol_serve: the kernel pair disagrees with the plain version: "
           f"{rel:.3e}")
     for plan, kind in ((p0, 0), (p2, 2)):
-        print_schedule(plan, kind, launch_config(plan, torch.float32, device))
+        print_schedule(plan, kind, launch_config(plan, torch.float32, device,
+                                                 kind, NRHS))
 
     # the L' sweep (gather form): time, bound, plain and cuSPARSE
     Y = sptrsv_multi(v32, Z, p0, 0)

@@ -12,20 +12,42 @@ it solves K factors of one pattern (K instances' values), in one launch.
     `csrc/sptrsv.cu`, one launch per sweep: the plan's dense block (if any)
     as one super-level solved in panels, and the other columns' levels;
     X's column in shared memory when it fits (`launch_config`), in device
-    memory otherwise. The source's header says what bounds it and how. A
-    build or launch failure, or a plan the kernel does not take, raises:
-    there is no fallback.
+    memory otherwise. Where X's column does not fit, an L sweep (kinds 0
+    and 2) of one instance over B >= SNODE_MIN_B columns takes the
+    "supernodal" variant instead: `plan.snode`'s tasks (`ops.snode`: panels
+    of consecutive columns with nested patterns; bottom subtrees as tasks,
+    the panels above them in parts of their rows below) in one persistent
+    launch, X row-major in device memory, tiles of 32 RHS columns; the
+    rule adapts to the shape alone.
+    It counts on `sptrsv_multi.supernodal` as well as `launches`. The
+    source's header says what bounds each variant and how. A build or
+    launch failure, or a plan the kernel does not take, raises: there is
+    no fallback.
   - On a CPU tensor it runs `sptrsv_plain_multi`, the plain torch version
     over the whole level schedule (a Python loop over levels with
     `index_add_`), which the CPU tests use and which the chip check
     compares the kernel with.
   - `sptrsv_plain_split_multi` is a second plain version that follows the
     kernel's schedule (a dense triangular solve for the block, then the
-    re-levelled columns); only the tests call it.
+    re-levelled columns); `sptrsv_plain_snode_multi` follows the
+    supernodal variant's tasks and packed blocks. Only the tests call
+    them.
 
 The kernel is compiled with nvcc from the one source at first use
 (`cuda_build`), into the package's gitignored build directory, under a name
 keyed on the source's hash. Nothing is built at import time.
+
+The supernodal variant's streams (`_snode_streams`) are the plan's task,
+level and panel tables and the dependency counters of each launch shape,
+which are never reset: each launch passes the number of launches made on
+them before (its epoch). So launches on one plan's counters must run one
+after another: `_in_order` makes a launch from another stream than the
+last one's wait for it (an event recorded after each launch), and a lock
+keeps threads from interleaving. Its value prepass (`_snode_values`)
+packs the factor's values into the panels' dense blocks with 1 / L[j, j]
+on the diagonal, kept while the values tensor is unchanged; `prepare`
+makes the schedule, its streams and the prepass ahead of the first sweep
+(the serve handles' build calls it).
 
 Streams derived from the plan (`_streams`): per level offsets eoff/coff,
 entry rows erow and columns ecol (slots eslot for the plain gather form),
@@ -38,21 +60,26 @@ outside the kernel, as it was on the TPU.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import numpy as np
 import torch
 
-from . import cuda_build
+from . import cuda_build, snode
 from .plan import device_cache
 
 __all__ = ["sptrsv_multi", "sptrsv_plain_multi", "sptrsv_plain_split_multi",
-           "launch_config", "build"]
+           "sptrsv_plain_snode_multi", "launch_config", "prepare", "build"]
 
 SOURCE = cuda_build.source("sptrsv")
 PANEL = 32  # dense panel width (csrc/sptrsv.cu kPanel)
 THREADS = 1024  # threads per CTA (csrc/sptrsv.cu kThreads)
 BATCH = 4  # entries per lane loaded together (csrc/sptrsv.cu kBatch)
+SNODE_MIN_B = 32  # fewest RHS columns for the supernodal variant
+SN_WARPS = 8  # warps per supernodal CTA (csrc/sptrsv.cu kSnWarps)
+PANEL_SN = snode.PANEL  # panel width (csrc/sptrsv.cu kSnWidth)
 
 
 class _Args(ctypes.Structure):
@@ -66,10 +93,23 @@ class _Args(ctypes.Structure):
             "pan_total", "K")])
 
 
+class _SnArgs(ctypes.Structure):
+    """The supernodal kernel's `SnodeArgs` (csrc/sptrsv.cu)."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "task_lvl", "lvl_pan", "pan", "grp", "part", "pinfo", "pval", "prow",
+        "wait", "need", "signal", "val", "x", "ctr", "acc")]
+        + [(f, ctypes.c_int) for f in ("ntask", "ngroup", "n", "B", "ntile")]
+        + [("epoch", ctypes.c_uint)])
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     i = ctypes.c_int
     for fn in (lib.sptrsv_sweep_f32, lib.sptrsv_sweep_f64):
         fn.argtypes = [i, i, i, ctypes.POINTER(_Args), ctypes.c_void_p]
+        fn.restype = i
+    for fn in (lib.sptrsv_snode_f32, lib.sptrsv_snode_f64):
+        fn.argtypes = [i, i, ctypes.POINTER(_SnArgs), ctypes.c_void_p]
         fn.restype = i
     lib.sptrsv_smem_optin.argtypes = [i]
     lib.sptrsv_smem_optin.restype = i
@@ -285,6 +325,99 @@ def sptrsv_plain_split_multi(tx: torch.Tensor, X: torch.Tensor, plan,
     return dense(rest(X))
 
 
+def _snode_streams(plan, kind: int, device: torch.device) -> dict:
+    """The supernodal variant's streams (cached): `plan.snode`'s groups,
+    levels and panels ((first column, width, rows below, first row in prow)
+    and each block's offset in the packed values), its tasks' groups and
+    parts, the rows below the panels, the dependencies, and each entry's
+    slot and position for the value prepass; `counters` keeps, for each
+    tile count, the counters (`ctr`: one int32 per group and tile, the
+    ticket, one arrival count per group and tile), the launches made on
+    them (`epoch`), for kind 2 each dtype's accumulator of the parts'
+    partial sums (`acc`: [group][tile][32][32], zero between launches),
+    and the last launch's stream and the event recorded after it."""
+
+    def make():
+        sp = plan.snode
+        pn = sp.panels
+        i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                        device=device)
+        return dict(
+            task_lvl=i32(sp.task_lvl), lvl_pan=i32(sp.lvl_pan), pan=i32(sp.pan),
+            grp=i32(sp.grp), part=i32(np.stack([sp.part, sp.nparts], 1)),
+            pinfo=i32(np.stack([pn.pf, pn.pw, pn.pm, pn.prow_off], 1)),
+            pval=i32(pn.pval_off), prow=i32(pn.prow), wait=i32(sp.wait),
+            need=i32(sp.need), signal=i32(sp.signal), vslot=i32(pn.vslot),
+            vpos=i32(pn.vpos), val_total=pn.val_total, n=pn.n, ntask=sp.ntask,
+            ngroup=sp.ngroup, parted=bool((sp.nparts > 1).any()),
+            npanel=pn.npanel, counters={})
+
+    return device_cache(plan, f"_sptrsv_snode_streams_{kind}", device, make)
+
+
+def _snode_values(tx: torch.Tensor, ks: dict) -> torch.Tensor:
+    """The supernodal value prepass: the factor's values packed into the
+    panels' dense blocks (zeros elsewhere), kept as `_values` keeps its
+    streams, while `tx` is unchanged."""
+    hit = ks.get("values")
+    if hit is not None and hit[0] is tx and hit[1] == tx._version:
+        return hit[2]
+    val = tx.new_zeros(ks["val_total"])
+    val[ks["vslot"]] = tx[ks["vpos"]]
+    dslot = ks["vslot"][:ks["n"]]  # the diagonals come first
+    val[dslot] = 1 / val[dslot]
+    ks["values"] = (tx, tx._version, val)
+    return val
+
+
+def sptrsv_plain_snode_multi(tx: torch.Tensor, X: torch.Tensor, plan,
+                             kind: int) -> torch.Tensor:
+    """Plain torch version of the supernodal variant (any device), on its
+    streams and packed values: the tasks in ticket order, each level's
+    panels in turn as dense blocks. Kind 0 solves a panel's triangle over
+    its rows of X, subtracts the block below times them from the task's
+    part of the rows below, and the group's last part stores them; kind 2
+    sums the transposed block below times the task's part of the rows
+    below, and the group's last part subtracts the sum from the panel's
+    rows and solves the transposed triangle. One
+    instance (tx [L], X [n, B]), kinds 0 and 2 of a plan with `snode`. No
+    main path calls it; the tests hold it against `sptrsv_plain_multi` and
+    the JAX package, and the kernel against it."""
+    _check(tx, X, plan, kind)
+    if kind not in (0, 2) or tx.dim() != 1 or plan.snode is None:
+        raise ValueError("the supernodal schedule takes kinds 0 and 2 of "
+                         "one instance, on a plan that has it")
+    ks = _snode_streams(plan, kind, X.device)
+    val = _snode_values(tx, ks)
+    x = X.clone()
+    prow = ks["prow"].long()
+    info, pval = ks["pinfo"].tolist(), ks["pval"].tolist()
+    tl, lp = ks["task_lvl"].tolist(), ks["lvl_pan"].tolist()
+    pan, grp = ks["pan"].tolist(), ks["grp"].tolist()
+    for g, (p, k) in zip(grp, ks["part"].tolist()):
+        for lev in range(tl[g], tl[g + 1]):
+            for s in pan[lp[lev]:lp[lev + 1]]:
+                f, w, m, ro = info[s]
+                wq = -(-w // snode.VEC) * snode.VEC
+                blk = val[pval[s]:pval[s] + (w + m) * wq].view(w + m, wq)
+                tri = blk[:w, :w].clone()
+                tri.diagonal().reciprocal_()  # the blocks hold 1 / L[j, j]
+                b0, b1 = m * p // k, m * (p + 1) // k  # this part's rows
+                low, rows = blk[w + b0:w + b1, :w], prow[ro + b0:ro + b1]
+                if kind == 0:  # each part solves; the last one stores
+                    xp = torch.linalg.solve_triangular(tri, x[f:f + w],
+                                                       upper=False)
+                    x.index_add_(0, rows, low @ xp, alpha=-1)
+                    if p == k - 1:
+                        x[f:f + w] = xp
+                else:  # each part sums; the last one solves
+                    acc = low.T @ x[rows] + (acc if p else 0)
+                    if p == k - 1:
+                        x[f:f + w] = torch.linalg.solve_triangular(
+                            tri.T, x[f:f + w] - acc, upper=True)
+    return x
+
+
 _OPTIN: dict = {}
 _ITEM = {torch.float32: 4, torch.float64: 8}
 
@@ -308,18 +441,34 @@ def _smem_optin(device: torch.device) -> int:
 # (global-memory variant); L' 0.704-0.717 against 1.29-1.30.
 
 
-def launch_config(plan, dtype, device) -> dict:
-    """The kernel's launch shape for X[plan.n, B] (one CTA per RHS column):
-    the variant, "shared" (X's column in shared memory beside the dense
-    block's x_D) when n <= 2^16 and it fits the card's per-CTA limit, else
-    "global"; and its dynamic shared memory. Raises when the kernel does
-    not take the plan."""
+def launch_config(plan, dtype, device, kind: int, B: int, *, K: int = 1,
+                  smem_optin=None) -> dict:
+    """The launch shape of a sweep of `kind` over X[(K,) plan.n, B]: the
+    variant and its dynamic shared memory per CTA. "shared" (one CTA per
+    RHS column, X's column in shared memory beside the dense block's x_D)
+    when n <= 2^16 and that fits the card's per-CTA limit (`smem_optin`,
+    read from the card when None); where it does not, "supernodal" for a
+    sweep of kind 0 or 2 over B >= SNODE_MIN_B columns of one instance
+    (K = 1) whose plan has `snode`, else "global" (one CTA per RHS column,
+    X in device memory). Raises when the kernel does not take the plan."""
     device = torch.device(device)
     item = _ITEM[dtype]
-    kpad = _panels(plan.dense.k)[0] if plan.dense is not None else 0
-    dbuf = 2 * PANEL * PANEL if kpad else 0  # staged diagonal blocks
-    optin = _smem_optin(device)
-    shared = plan.n <= 1 << 16 and (dbuf + kpad + plan.n) * item <= optin
+    optin = _smem_optin(device) if smem_optin is None else int(smem_optin)
+
+    def block():  # the dense block's padded size, its staged diagonals
+        kpad = _panels(plan.dense.k)[0] if plan.dense is not None else 0
+        return kpad, 2 * PANEL * PANEL if kpad else 0
+
+    # X's column alone is tried first: a supernodal sweep never reads the
+    # dense block, which is found at its first read
+    shared = (plan.n <= 1 << 16 and plan.n * item <= optin
+              and (sum(block()) + plan.n) * item <= optin)
+    if (not shared and kind in (0, 2) and K == 1 and B >= SNODE_MIN_B
+            and plan.snode is not None):
+        rows = 16 if item == 4 else 8  # csrc/sptrsv.cu Sn<T>::kRows
+        smem = SN_WARPS * (PANEL_SN * 32 + 32 * 36 + 2 * rows * 32) * item
+        return {"shared": False, "variant": "supernodal", "smem": smem}
+    kpad, dbuf = block()
     smem = (dbuf + kpad + (plan.n if shared else 0)) * item
     if smem > optin:
         raise ValueError(
@@ -376,13 +525,17 @@ def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
     variant as the transposed view of a [(K,) B, n] buffer."""
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"SpTRSV kernel takes float32/float64, got {X.dtype}")
-    ks = _kernel_streams(plan, kind, X.device)
     B = X.shape[-1]
     K = X.shape[0] if X.dim() == 3 else 1
     if K > 65535:
         raise ValueError(f"SpTRSV kernel takes at most 65,535 instances, "
                          f"got {K}")
-    cfg = launch_config(plan, X.dtype, X.device)
+    cfg = launch_config(plan, X.dtype, X.device, kind, B, K=K)
+    if cfg["variant"] == "supernodal":
+        if X.dim() == 3:
+            return _sweep_snode(tx[0], X[0], plan, kind)[None]
+        return _sweep_snode(tx, X, plan, kind)
+    ks = _kernel_streams(plan, kind, X.device)
     for what, count in (("entry", ks["nents"] + BATCH * THREADS),
                         ("dense block", ks["pan_total"]),
                         ("dense block", ks["kpad"] ** 2)):
@@ -424,6 +577,128 @@ def _sweep_cuda(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
     return x.transpose(-1, -2) if cfg["shared"] else x
 
 
+def _sanitize_snode(ks: dict, n: int, L: int) -> None:
+    """`cuda_build.sanitize`'s checks of the supernodal streams."""
+    name = "SpTRSV"
+    cuda_build.check_pointers(name, "task levels", ks["task_lvl"],
+                              len(ks["lvl_pan"]) - 1)
+    cuda_build.check_pointers(name, "level panels", ks["lvl_pan"],
+                              ks["npanel"])
+    cuda_build.check_index(name, "pan", ks["pan"], ks["npanel"])
+    cuda_build.check_index(name, "grp", ks["grp"], ks["ngroup"])
+    pk = ks["part"].cpu().long()
+    cuda_build.check_index(name, "part", pk[:, 0], 2**16)
+    cuda_build.check_index(name, "parts", pk[:, 1] - pk[:, 0], 2**16, 1)
+    info = ks["pinfo"].cpu().long()
+    f, w, m, ro = info.unbind(1)
+    cuda_build.check_index(name, "panel columns", f + w, n + 1, 1)
+    cuda_build.check_index(name, "panel widths", w, PANEL_SN + 1, 1)
+    cuda_build.check_index(name, "panel rows", ro + m, len(ks["prow"]) + 1)
+    wq = (w + snode.VEC - 1) // snode.VEC * snode.VEC
+    cuda_build.check_index(name, "panel blocks",
+                           ks["pval"].cpu().long() + (w + m) * wq,
+                           ks["val_total"] + 1)
+    cuda_build.check_index(name, "prow", ks["prow"], n)
+    for key in ("wait", "signal"):
+        cuda_build.check_index(name, key, ks[key], ks["ngroup"], -1)
+    cuda_build.check_index(name, "vslot", ks["vslot"], ks["val_total"])
+    cuda_build.check_index(name, "vpos", ks["vpos"], L)
+
+
+_SNODE_LOCK = threading.Lock()  # one supernodal launch's host side at a time
+
+
+@contextlib.contextmanager
+def _in_order(c: dict, stream):
+    """Run a launch on the counters `c` after the last one: from another
+    stream than the last launch's, `stream` first waits for the event
+    recorded after that launch (its counters and accumulator are only
+    right for launches that follow one another). Yields the launch's
+    epoch; once the launch is made, the epoch counts it and the event is
+    recorded on `stream`. Hold `_SNODE_LOCK` around it."""
+    if c["done"] is not None and c["stream"] != stream.cuda_stream:
+        stream.wait_event(c["done"])
+    yield c["epoch"]
+    c["epoch"] += 1
+    c["done"] = stream.record_event(c["done"])
+    c["stream"] = stream.cuda_stream
+
+
+def _sweep_snode(tx: torch.Tensor, X: torch.Tensor, plan, kind: int):
+    """One launch of the supernodal variant over X [n, B] (tx [L]): a
+    persistent grid whose CTAs take (task, tile of 32 RHS columns) tickets
+    in order. Returns X solved, a new contiguous [n, B]. Launches on one
+    plan's counters run one after another, on any streams (`_in_order`)."""
+    ks = _snode_streams(plan, kind, X.device)
+    B = X.shape[-1]
+    ntile = -(-B // 32)
+    if (ks["ntask"] + 2 * ks["ngroup"]) * ntile + 1 >= 2**31:
+        raise ValueError("too many supernodal tasks for 32-bit tickets")
+    lib = build()
+    sanitize = cuda_build.sanitizing()
+    if sanitize:
+        _sanitize_snode(ks, plan.n, tx.shape[-1])
+    dev = X.device
+    stream = torch.cuda.current_stream(dev)
+    with _SNODE_LOCK:
+        val = _snode_values(tx, ks)
+        c = ks["counters"].get(ntile)
+        if c is None:
+            c = ks["counters"][ntile] = dict(
+                ctr=torch.zeros(2 * ks["ngroup"] * ntile + 1,
+                                dtype=torch.int32, device=dev),
+                epoch=0, acc={}, stream=None, done=None)
+        acc = None
+        if kind == 2 and ks["parted"]:  # the parts' partial sums, kept zero
+            acc = c["acc"].get(X.dtype)
+            if acc is None:
+                acc = c["acc"][X.dtype] = X.new_zeros(
+                    ks["ngroup"] * ntile * 32 * 32)
+        x = X.contiguous().clone()
+        p = lambda key: ks[key].data_ptr()
+        args = _SnArgs(task_lvl=p("task_lvl"), lvl_pan=p("lvl_pan"),
+                       pan=p("pan"), grp=p("grp"), part=p("part"),
+                       pinfo=p("pinfo"), pval=p("pval"), prow=p("prow"),
+                       wait=p("wait"), need=p("need"), signal=p("signal"),
+                       val=val.data_ptr(), x=x.data_ptr(),
+                       ctr=c["ctr"].data_ptr(),
+                       acc=acc.data_ptr() if acc is not None else None,
+                       ntask=ks["ntask"], ngroup=ks["ngroup"], n=plan.n, B=B,
+                       ntile=ntile)
+        fn = (lib.sptrsv_snode_f32 if X.dtype == torch.float32
+              else lib.sptrsv_snode_f64)
+        with _in_order(c, stream) as epoch:
+            args.epoch = epoch & 0xFFFFFFFF
+            rc = fn(dev.index if dev.index is not None
+                    else torch.cuda.current_device(), int(kind == 0),
+                    ctypes.byref(args), stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"SpTRSV kernel launch failed (cudaError {rc})")
+    sptrsv_multi.launches += 1
+    sptrsv_multi.supernodal += 1
+    if sanitize:
+        cuda_build.synchronize("SpTRSV", dev)
+    return x
+
+
+def prepare(tx: torch.Tensor, plan, kind: int) -> None:
+    """Make ahead of the first sweep what a supernodal sweep of `kind` over
+    the values `tx` would make then: the plan's schedule (`plan.snode`),
+    its streams on tx's card and the value prepass. Nothing where the
+    variant would not run at B = SNODE_MIN_B (off a card, K instances,
+    kinds 1 and 3, X's column in shared memory) or the kernel does not
+    take the plan (the sweep raises)."""
+    if tx.device.type != "cuda" or tx.dim() != 1:
+        return
+    try:
+        cfg = launch_config(plan, tx.dtype, tx.device, kind, SNODE_MIN_B)
+    except ValueError:
+        return
+    if cfg["variant"] == "supernodal":
+        _snode_values(tx, _snode_streams(plan, kind, tx.device))
+
+
 def sptrsv_multi(tx: torch.Tensor, X: torch.Tensor, plan, kind: int, *,
                  contiguous: bool = True) -> torch.Tensor:
     """Batched triangular solve of X[n, B]; returns a new [n, B] tensor.
@@ -450,3 +725,4 @@ def sptrsv_multi(tx: torch.Tensor, X: torch.Tensor, plan, kind: int, *,
 
 
 sptrsv_multi.launches = 0  # kernel launches (the CPU path does not count)
+sptrsv_multi.supernodal = 0  # of them, launches of the supernodal variant

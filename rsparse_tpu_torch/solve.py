@@ -51,8 +51,9 @@ from . import ops
 from .config import config
 from .data import Nmrc, Sprs, Symb
 from .factor import _card, _values_fp, device_values, require_square
-from .ops.plan import col_ids, device_cache
-from .ops.sptrsv_cuda import sptrsv_multi
+from .ops.plan import _cached_plan, col_ids, device_cache
+from .ops.snode import SnodePlan, snode_panels, snode_schedule
+from .ops.sptrsv_cuda import prepare, sptrsv_multi
 from .symbolic import native
 from .utils.profiling import device_barrier, phase_timer
 
@@ -123,6 +124,9 @@ class TriPlan:
     # computes `dense` at its first use (None: the plan has no split)
     split: Optional[Callable[[], Optional[DenseSplit]]] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # computes `snode` at its first use (None: kinds 1 and 3)
+    supernodes: Optional[Callable[[], Optional[SnodePlan]]] = (
+        dataclasses.field(default=None, repr=False, compare=False))
 
     @functools.cached_property
     def dense(self) -> Optional[DenseSplit]:
@@ -131,6 +135,14 @@ class TriPlan:
         above are the whole schedule). Found at first use, so that the
         plain level loop never pays for it."""
         return self.split() if self.split is not None else None
+
+    @functools.cached_property
+    def snode(self) -> Optional[SnodePlan]:
+        """The supernodal schedule of an L sweep (kinds 0 and 2; see
+        `ops.snode`), for the kernel's "supernodal" variant; None for kinds
+        1 and 3 and for a pattern it does not take. Found at first use,
+        from the pattern alone; both kinds share one analysis of it."""
+        return self.supernodes() if self.supernodes is not None else None
 
     def remap_positions(self, pos: np.ndarray) -> "TriPlan":
         """The same plan with every position into T.x mapped through `pos`
@@ -143,8 +155,15 @@ class TriPlan:
                 d, diag=m(d.diag), tri_pos=m(d.tri_pos), out_pos=m(d.out_pos),
                 rest=d.rest.remap_positions(pos))
 
+        def supernodes():
+            sp = self.snode
+            return None if sp is None else dataclasses.replace(
+                sp, panels=dataclasses.replace(sp.panels,
+                                               vpos=m(sp.panels.vpos)))
+
         return dataclasses.replace(self, ent_pos=m(self.ent_pos),
-                                   col_diag=m(self.col_diag), split=split)
+                                   col_diag=m(self.col_diag), split=split,
+                                   supernodes=supernodes)
 
 
 def _schedule(n: int, lev: np.ndarray, cols: np.ndarray, diag_pos, pos,
@@ -270,8 +289,9 @@ def tri_plan(t: Sprs, kind: int) -> TriPlan:
     """kind: 0=lsolve, 1=usolve (scatter form), 2=ltsolve, 3=utsolve (gather).
 
     The level fields are the whole level schedule (the JAX package's);
-    `dense` adds the kernel's schedule when the factor has a dense block
-    (found when first read)."""
+    `dense` adds the kernel's schedule when the factor has a dense block,
+    `snode` the supernodal one of an L sweep (each found when first
+    read)."""
     n = t.n
     nz = t.nnz()
     lev = native.tri_levels(n, t.p, t.i[:nz], kind)
@@ -287,8 +307,17 @@ def tri_plan(t: Sprs, kind: int) -> TriPlan:
     erows = t.i[:nz][offd].astype(np.int64)
     plan = _schedule(n, lev, np.arange(n, dtype=np.int64), diag_pos, pos,
                      erows, ecols)
-    return dataclasses.replace(plan, split=lambda: _dense_split(
-        t, kind, lev, diag_pos, pos, erows, ecols))
+    return dataclasses.replace(
+        plan, split=lambda: _dense_split(t, kind, lev, diag_pos, pos, erows,
+                                         ecols),
+        supernodes=(lambda: _supernodes(t, kind)) if kind in (0, 2) else None)
+
+
+def _supernodes(t: Sprs, kind: int) -> Optional[SnodePlan]:
+    """`TriPlan.snode` of L = t for kind 0 or 2: the panels, cached on the
+    pattern (`ops.plan`) so that the two kinds of one factor share them."""
+    pn = _cached_plan("snode", lambda a: snode_panels(a.n, a.p, a.i), t)
+    return None if pn is None else snode_schedule(pn, kind)
 
 
 # ---------------------------------------------------------------------------
@@ -558,11 +587,15 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     float32 values of each sweep are made here once, and the kernel's
     per-sweep index streams, the specs of the chain and the value prepass
     (`ops.sptrsv_cuda._values`) are cached with the plans at the first
-    sweep. The factor values and index tensors stay on `device` across
-    calls; `h.chain` holds the sweeps as (TriPlan, float32 values, kind)."""
+    sweep; a sweep that will take the supernodal variant gets its
+    schedule, streams and value prepass here (`ops.sptrsv_cuda.prepare`).
+    The factor values and index tensors stay on `device` across calls;
+    `h.chain` holds the sweeps as (TriPlan, float32 values, kind)."""
     dev = torch.device(device)
     sweeps = [(plan, torch.as_tensor(vals, device=dev).to(torch.float32), kind)
               for plan, vals, kind in chain]
+    for plan, v32, kind in sweeps:
+        prepare(v32, plan, kind)
     ix = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
     pin_d = ix(pin) if pin is not None else None
     pout_d = ix(pout) if pout is not None else None
@@ -608,18 +641,20 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     return handle
 
 
-def _sweeps_fit(plans, device) -> bool:
-    """Whether the sweep kernel takes every plan in float32 on `device`
-    (`ops.sptrsv_cuda.launch_config`: a dense block that fits its shared
-    memory); always True off a card, where the plain sweep takes any
-    plan. The counterpart of the JAX package's `pallas_sweep_available`."""
+def _sweeps_fit(sweeps, device) -> bool:
+    """Whether the sweep kernel takes every (plan, kind) of `sweeps` in
+    float32 on `device` for any number of RHS columns
+    (`ops.sptrsv_cuda.launch_config` at one column: a dense block that
+    fits its shared memory); always True off a card, where the plain sweep
+    takes any plan. The counterpart of the JAX package's
+    `pallas_sweep_available`."""
     from .ops.sptrsv_cuda import launch_config
 
     if torch.device(device).type != "cuda":
         return True
     try:
-        for plan in plans:
-            launch_config(plan, torch.float32, device)
+        for plan, kind in sweeps:
+            launch_config(plan, torch.float32, device, kind, 1)
     except ValueError:
         return False
     return True
@@ -1416,8 +1451,9 @@ def qrsol_serve(a: Sprs, order: int = 2, *, sym: Optional[Symb] = None,
     another dimension). `h.last_residual` holds the final max of the
     least-squares gradient |A'(B - AX)| (of |B - AX| for m < n),
     `h.factor_route` the Gram factor's route, and `h.available` whether
-    the sweep kernel takes the Gram factor's plans on `device` (True off a
-    card); when it is False, h(B) raises ValueError. No reference
+    the sweep kernel takes the Gram factor's plans on `device` for any
+    number of RHS columns (True off a card); when it is False, h(B) may
+    raise ValueError. No reference
     counterpart (the reference's qrsol is single-RHS, src/lib.rs:927-956).
     """
     from .factor import chol
@@ -1442,7 +1478,7 @@ def qrsol_serve(a: Sprs, order: int = 2, *, sym: Optional[Symb] = None,
                            a.i[:nz], col_ids(a.p, n), a.x[:nz], refine, dev,
                            m=m)
     # without a fit the first sweep raises ValueError (launch_config)
-    h.available = _sweeps_fit((p0, p2), dev)
+    h.available = _sweeps_fit(((p0, 0), (p2, 2)), dev)
     h.sym = s
     h.factor_route = s._chol_route
     return h
@@ -1461,7 +1497,7 @@ def _serve_sweeps_mixed(a: Sprs, s: Symb, nm: Nmrc, Bm: np.ndarray, device):
     if not _serve_enabled(device) or nrhs < 8:
         return None
     dev = _card(device)
-    if not _sweeps_fit(_chol_tri_plans(s, nm), dev):
+    if not _sweeps_fit(zip(_chol_tri_plans(s, nm), (0, 2)), dev):
         return None
     key = (_values_fp(a), str(dev))
     handles = s.__dict__.setdefault("_serve_handles", {})

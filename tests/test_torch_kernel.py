@@ -1,6 +1,9 @@
 """The port's CUDA kernels against their plain torch versions: the SpTRSV
 sweep (csrc/sptrsv.cu), the streaming SpMM (csrc/spmm.cu) and the DIA SpMV
-(csrc/spmv_dia.cu), the sweep also over K instances' values at once; and
+(csrc/spmv_dia.cu), the sweep also over K instances' values at once and in
+its supernodal variant (lap2d-256's L, n = 65,536: one activity and one
+count a call, launches on two streams, the handle build's prepass; and
+called directly on the CPU tests' triangles, `snode_patterns`); and
 the solvers that run the sweep (the single-RHS solves, lusol, cholsol,
 cholsol_serve, qrsol, the batched and serving drivers cholsol_multi,
 lusol_multi, qrsol_multi, qrsol_serve and cholsol_ir, and the
@@ -35,6 +38,7 @@ from rsparse_tpu_torch.ops.spmm_cuda import (  # noqa: E402
 from rsparse_tpu_torch.ops.sptrsv_cuda import (  # noqa: E402
     sptrsv_multi, sptrsv_plain_multi)
 from rsparse_tpu_torch.symbolic import native  # noqa: E402
+import snode_patterns  # noqa: E402  (numpy and the port only)
 
 
 def _tri(kind, g=12):
@@ -117,7 +121,7 @@ def test_kernel_matches_plain_on_card(case, kind, dtype, tol, B):
 
     t, plan = _sweep_case(case, kind)
     assert (plan.dense is not None) == (case != "levels")
-    cfg = launch_config(plan, dtype, "cuda")
+    cfg = launch_config(plan, dtype, "cuda", kind, B)
     assert cfg["variant"] == ("global" if case == "large" else "shared")
     tx = torch.as_tensor(t.x[: t.nnz()], dtype=dtype, device="cuda")
     X = torch.as_tensor(np.random.default_rng(B).standard_normal((t.n, B)),
@@ -161,6 +165,186 @@ def test_kernel_instances_match_plain_on_card(case, K, B, kind, dtype, tol):
     for k in sorted({0, K // 2, K - 1}):
         one = sptrsv_multi(tx[k].contiguous(), X[k], plan, kind)
         assert _rel(got[k], one) < tol
+
+
+_SNODE: dict = {}
+
+
+def _snode_case():
+    """lap2d-256's L: the host engine's Cholesky factor of the 256 x 256
+    5-point Laplacian in AMD order (n = 65,536), and its kind 0 and 2
+    plans, whose sweeps at B >= 32 take the supernodal variant."""
+    if not _SNODE:
+        from rsparse_tpu_torch.symbolic import _symperm_host
+
+        n, p, i, x = laplacian_5pt(256)
+        a = sprs_from_fields(n, n, p, i, x)
+        s = rt.schol(a, 1)
+        c = _symperm_host(a, s.pinv)
+        Lp, Li, Lx = native.chol_numeric(n, c.p, c.i[: c.nnz()],
+                                         c.x[: c.nnz()], s.parent, s.cp)
+        L = sprs_from_fields(n, n, Lp, Li, Lx)
+        _SNODE.update(L=L, plans={k: rt.tri_plan(L, k) for k in (0, 2)})
+    return _SNODE["L"], _SNODE["plans"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("B", [128, 40])
+def test_snode_kernel_chain_matches_plain_on_card(dtype, tol, B):
+    """The supernodal variant at n = 65,536: an L then L' chain of two
+    launches against the level loop's chain (f32: atomics reorder the
+    sums; f64: rounding level)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch.ops.sptrsv_cuda import launch_config
+
+    L, plans = _snode_case()
+    for kind, plan in plans.items():
+        cfg = launch_config(plan, dtype, "cuda", kind, B)
+        assert cfg["variant"] == "supernodal"
+    tx = torch.as_tensor(L.x[: L.nnz()], dtype=dtype, device="cuda")
+    X = torch.as_tensor(np.random.default_rng(B).standard_normal((L.n, B)),
+                        dtype=dtype, device="cuda")
+    got = sptrsv_multi(tx, sptrsv_multi(tx, X, plans[0], 0), plans[2], 2)
+    want = sptrsv_plain_multi(tx, sptrsv_plain_multi(tx, X, plans[0], 0),
+                              plans[2], 2)
+    torch.cuda.synchronize()
+    assert got.shape == X.shape and got.is_contiguous()
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.gpu
+def test_snode_kernel_one_activity_per_call_on_card():
+    """Under the profiler each supernodal sweep is exactly one device
+    activity whose name has `sweep_kernel` in it (the benchmark matches
+    them with the launch counter): no helper kernel, no counter reset."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    L, plans = _snode_case()
+    tx = torch.as_tensor(L.x[: L.nnz()], dtype=torch.float32, device="cuda")
+    X = torch.randn((L.n, 128), dtype=torch.float32, device="cuda")
+    for kind, plan in plans.items():  # warm: the build and the prepass
+        sptrsv_multi(tx, X, plan, kind)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for kind, plan in plans.items():
+            sptrsv_multi(tx, X, plan, kind)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda]
+    sweeps = [nm for nm in names if "sweep_kernel" in nm]
+    assert len(sweeps) == 2 and all("snode_sweep_kernel" in nm
+                                    for nm in sweeps), names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("B", [32, 40, 130])
+@pytest.mark.parametrize("kind", [0, 2])
+@pytest.mark.parametrize("name", snode_patterns.PATTERNS)
+def test_snode_kernel_matches_plain_on_patterns_on_card(name, kind, B, dtype,
+                                                        tol):
+    """The supernodal variant called directly on each triangle of the CPU
+    tests (small tasks, so that each has bottom subtrees, panels above them
+    and, in the wide root and the Laplacians, parted groups), three launches
+    back to back on one plan's counters (epochs 0-2), each against the level
+    loop (f32: atomics reorder the sums; f64: rounding level)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch.ops.sptrsv_cuda import _sweep_snode
+
+    L = snode_patterns.triangle(name)
+    plan = snode_patterns.plan(L, kind)
+    tx = torch.as_tensor(L.x[: L.nnz()], dtype=dtype, device="cuda")
+    rng = np.random.default_rng(B + kind)
+    Xs = [torch.as_tensor(rng.standard_normal((L.n, B)), dtype=dtype,
+                          device="cuda") for _ in range(3)]
+    gots = [_sweep_snode(tx, X, plan, kind) for X in Xs]
+    torch.cuda.synchronize()
+    for X, got in zip(Xs, gots):
+        assert got.shape == X.shape and got.is_contiguous()
+        assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
+
+
+@pytest.mark.gpu
+def test_snode_kernel_launches_on_two_streams_on_card():
+    """Supernodal launches on one plan from two streams, with no wait
+    between them in the caller, run one after another (the wrapper's
+    event): each answer is the level loop's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    L, plans = _snode_case()
+    tx = torch.as_tensor(L.x[: L.nnz()], dtype=torch.float32, device="cuda")
+    Xs = [torch.randn((L.n, 128), dtype=torch.float32, device="cuda")
+          for _ in range(4)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for kind, plan in plans.items():
+        gots = []
+        for k, X in enumerate(Xs):
+            with torch.cuda.stream(streams[k % 2]):
+                gots.append(sptrsv_multi(tx, X, plan, kind))
+        torch.cuda.synchronize()
+        for X, got in zip(Xs, gots):
+            want = sptrsv_plain_multi(tx, X, plan, kind)
+            assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.gpu
+def test_snode_prepare_makes_the_first_sweeps_work_on_card():
+    """`prepare` (the serve handles' build) makes a supernodal sweep's
+    schedule, streams and value prepass, which the first sweep then
+    finds, and not the dense block, which it does not use; a sweep that
+    keeps another variant gets nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch.ops import sptrsv_cuda
+
+    L, _ = _snode_case()
+    tx = torch.as_tensor(L.x[: L.nnz()], dtype=torch.float32, device="cuda")
+    for kind in (0, 2):
+        plan = rt.tri_plan(L, kind)
+        sptrsv_cuda.prepare(tx, plan, kind)
+        assert "snode" in plan.__dict__ and "dense" not in plan.__dict__
+        ks = sptrsv_cuda._snode_streams(plan, kind, tx.device)
+        val = ks["values"][2]
+        assert ks["values"][0] is tx
+        X = torch.randn((L.n, 32), dtype=torch.float32, device="cuda")
+        got = sptrsv_multi(tx, X, plan, kind)
+        assert ks["values"][2] is val
+        torch.cuda.synchronize()
+        assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < 1e-4
+    t, plan = _sweep_case("dense", 0)  # the shared variant
+    tx = torch.as_tensor(t.x[: t.nnz()], dtype=torch.float32, device="cuda")
+    sptrsv_cuda.prepare(tx, plan, 0)
+    assert "snode" not in plan.__dict__
+
+
+@pytest.mark.gpu
+def test_snode_counter_counts_each_call_on_card():
+    """`sptrsv_multi.supernodal` counts each supernodal launch, each also
+    one of `sptrsv_multi.launches`; a sweep on another variant adds to
+    `launches` alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    L, plans = _snode_case()
+    tx = torch.as_tensor(L.x[: L.nnz()], dtype=torch.float32, device="cuda")
+    before = (sptrsv_multi.launches, sptrsv_multi.supernodal)
+    for B in (32, 128, 130):
+        X = torch.randn((L.n, B), dtype=torch.float32, device="cuda")
+        for kind, plan in plans.items():
+            sptrsv_multi(tx, X, plan, kind)
+    sptrsv_multi(tx, torch.randn((L.n, 8), dtype=torch.float32,
+                                 device="cuda"), plans[0], 0)  # global
+    torch.cuda.synchronize()
+    assert sptrsv_multi.supernodal == before[1] + 6
+    assert sptrsv_multi.launches == before[0] + 7
 
 
 @pytest.mark.gpu
@@ -633,7 +817,7 @@ def test_multi_drivers_on_card(monkeypatch, driver, mf_min_n):
 @pytest.mark.parametrize("branch", ["ls", "mn"])
 def test_qrsol_serve_available_on_card(branch):
     """qrsol_serve's `available` is True exactly when the sweep kernel's
-    launch_config takes both Gram sweeps in float32."""
+    launch_config takes both Gram sweeps in float32 at one column."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from rsparse_tpu_torch.ops.sptrsv_cuda import launch_config
@@ -641,10 +825,10 @@ def test_qrsol_serve_available_on_card(branch):
     a, aw = _qr_case(grid=24)
     h = rt.qrsol_serve(a if branch == "ls" else aw, 2, device="cuda")
     fits = True
-    for plan, v32, _ in h.chain:
+    for plan, v32, kind in h.chain:
         assert v32.dtype == torch.float32 and v32.device.type == "cuda"
         try:
-            launch_config(plan, torch.float32, "cuda")
+            launch_config(plan, torch.float32, "cuda", kind, 1)
         except ValueError:
             fits = False
     assert h.available == fits
