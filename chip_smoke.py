@@ -45,10 +45,15 @@ at full size and checks them:
      AMD (order 1), `cholsol(A, b, 1, sym=s, device="cuda")` once cold and
      three times warm; each answer held to the C++ engine's chol + two
      triangular solves, every call's route must be the device
-     multifrontal one; walls beside one C++ factorization and solve per
-     call, the innermost skeleton's size and cut; every kernel sweep of a
-     warm call (the factorization's W = L_NN^-1 C(N, T), float64, B =
-     2,048, and the solve's two B = 1 sweeps) replayed on its recorded
+     multifrontal one and its skeleton a front tree (`factor.front_tree`:
+     dense fronts and matmuls, no sweep); walls beside one C++
+     factorization and solve per call, the skeleton's size, fronts and
+     widest front; the same four calls on a second analysis whose plan is
+     forced onto the skeleton route (recursion, the column machinery and
+     its dense tail: the route of skeletons with no supernode wider than
+     the subtree fronts), and every kernel sweep of a warm call there
+     (the factorization's W = L_NN^-1 C(N, T), float64, B = 2,048, and the
+     solve's two B = 1 sweeps, at least one) replayed on its recorded
      inputs against its plain version, with its time and bound; then the
      error contracts on the card: NotPositiveDefiniteError from cholsol
      with one diagonal negated (a 24 x 24 Laplacian on the level route, and
@@ -76,9 +81,11 @@ at full size and checks them:
      profile of one warm least-squares call;
  11. the batched and serving drivers (main paths 8-12), each at full width
      with its launch counts set to 0 just before it and read just after:
-     `cholsol_multi(A, B, 1, sym=s)` on phase 8's Laplacian and analysis,
-     B[n, 128], once cold and three times warm (route device_mf), held to
-     one C++ factorization plus 128 sequential C++ solves; `lusol_multi` on
+     `cholsol_multi(A, B, 1, sym=s)` on phase 8's Laplacian and both its
+     analyses (the front tree; the skeleton route, whose sweeps are
+     replayed), B[n, 128], once cold and three times warm (route
+     device_mf), held to one C++ factorization plus 128 sequential C++
+     solves; `lusol_multi` on
      phase 7's matrix and analysis, B[n, 128], once cold and three times
      warm (route device_mf), held to its residual and to the C++ engine's
      LU plus 128 solves; per qrsol branch (phase 10's matrices, the Gram
@@ -97,7 +104,8 @@ at full size and checks them:
      one cold and one warm call each (route device_mf, no instance solved
      again one by one), with the upload time of its [K, nnz] values and
      the peak device memory: `cholsol_vals` on phase 8's Laplacian and
-     analysis, K = 16 (diagonals scaled by 1 + 0.25k), every instance held
+     both its analyses (the skeleton route's instance-batched sweeps
+     replayed), K = 16 (diagonals scaled by 1 + 0.25k), every instance held
      to the C++ engine's factorization and solve, walls beside those 16 C++
      solves and 16 port cholsol calls, then one instance's diagonal negated
      must raise NotPositiveDefiniteError naming exactly it; `lusol_vals` on
@@ -108,10 +116,10 @@ at full size and checks them:
      scaled by 1 + 0.1k), each instance held to the gate and to the port's
      qrsol, instances 0 and 3 to the C++ engine's QR and apply (each takes
      seconds); a profile of a warm call of each, and every instance-batched
-     sweep (one launch for all K: cholsol_vals' factor and solve sweeps,
-     qrsol_vals' R sweeps) replayed against its plain version with its
-     time, its bound (K instances' values and X, the shared pattern once)
-     and K cuSPARSE triangular solves;
+     sweep (one launch for all K: cholsol_vals' factor and solve sweeps
+     on the skeleton route, qrsol_vals' R sweeps) replayed against its
+     plain version with its time, its bound (K instances' values and X,
+     the shared pattern once) and K cuSPARSE triangular solves;
  13. the general operators and utils (main paths 16-17), each path with
      its launch counts set to 0 just before it and read just after:
      `spmv_general` on phase 6's A in float32 and float64 (the plan's
@@ -151,7 +159,8 @@ at full size and checks them:
      1e-10 max(1, max|b|)); `dist_qrsol` on both of phase 10's matrices
      against qrsol (1e-8); `refine_step` on the 128 x 128 Laplacian's
      natural-order factor, 4 RHS from X = 0 (residual 1e-8); and
-     `dist_cholsol_vals` (K = 16), `dist_lusol_vals` (K = 8),
+     `dist_cholsol_vals` (K = 16, both of phase 8's analyses; sweeps
+     only on the skeleton route), `dist_lusol_vals` (K = 8),
      `dist_qrsol_vals` (K = 4, both branches) on phase 12's inputs and
      analyses, against phase 12's answers (1e-12) and the C++ engine's
      (phase 12's tolerances); the kernel sweeps of these paths replayed
@@ -1166,23 +1175,56 @@ def chol_host_solves(n, factors, pinv, B: np.ndarray) -> np.ndarray:
     return X
 
 
-def phase_cholsol(seed: int, device: str = "cuda"):
-    """cholsol on the card: one cold and three warm calls on the
-    CHOL_GRID Laplacian with the analysis reused, checked against the C++
-    engine; then the error contracts. Returns (the Laplacian, its
-    analysis, the kernel launches of the run)."""
-    from rsparse_tpu_torch import NoPivotError, NotPositiveDefiniteError, Sprs
-    from rsparse_tpu_torch import cholsol, lusol, schol
+def skeleton_route_sym(a):
+    """A fresh AMD analysis of a whose multifrontal plan takes the
+    recursive skeleton route: the recursion, then the column machinery, its
+    dense tail and its L_NN sweeps. The port plans a skeleton that holds a
+    supernode wider than the subtree fronts as a front tree
+    (`factor.front_tree`), which every CHOL_GRID-sized matrix does; the
+    skeleton route remains for skeletons without one, the small systems the
+    JAX package's parity tests plan. It is forced here (`has_wide` off while
+    the plan is made) so that its sweeps stay held at full width."""
+    from rsparse_tpu_torch import schol
+    from rsparse_tpu_torch.factor import front_tree, frontal
+    from rsparse_tpu_torch.symbolic import _symperm_host
+
+    s = schol(a, 1)
+    real = front_tree.has_wide
+    front_tree.has_wide = lambda *args: False
+    try:
+        s._mf_plan = frontal.build_mf_plan(_symperm_host(a, s.pinv), s)
+    finally:
+        front_tree.has_wide = real
+    return s
+
+
+def skeleton_txt(s) -> str:
+    """The innermost skeleton of s's multifrontal plan, in words."""
+    from rsparse_tpu_torch.factor.front_tree import FrontTree
     from rsparse_tpu_torch.factor.frontal import MFPlan
 
-    n, Ap, Ai, Ax = laplacian_5pt(CHOL_GRID)
-    a = Sprs(len(Ax), n, n, Ap, Ai, Ax)
-    rng = np.random.default_rng(seed + 8)
-    bs = [rng.standard_normal(n) for _ in range(4)]
+    plan, depth = s._mf_plan, 0
+    while isinstance(plan, MFPlan):
+        plan, depth = plan.skel_plan, depth + 1
+    if isinstance(plan, FrontTree):
+        return (f"mf_depth={depth} skeleton=front_tree n={plan.n} fronts="
+                f"{sum(len(g.off) for g in plan.groups)} groups="
+                f"{len(plan.groups)} widest={max(g.wp for g in plan.groups)} "
+                f"wide_cols={plan.wide_cols}")
+    tail = plan.tail
+    return (f"mf_depth={depth} skeleton=levels n={plan.n} levels="
+            f"{len(plan.levels)} cut={tail.cut if tail else None} "
+            f"tail={tail.d if tail else None}")
+
+
+def cholsol_calls(a, s, bs, label: str, device: str) -> int:
+    """One cold and len(bs) - 1 warm cholsol calls on a with analysis s,
+    each held to the C++ engine's chol + two triangular solves, every
+    route the device multifrontal one. Returns the kernel launches."""
+    from rsparse_tpu_torch import cholsol
+
+    n = a.n
     reset_counts()
-    t0 = time.perf_counter()
-    s = schol(a, 1)
-    t_an = time.perf_counter() - t0
     walls, answers, routes = [], [], []
     for b in bs:
         t0 = time.perf_counter()
@@ -1198,34 +1240,56 @@ def phase_cholsol(seed: int, device: str = "cuda"):
         host_walls.append(time.perf_counter() - t0)
         res = float(np.abs(host_residual(a, x) - b).max())
         dev = float(np.abs(x - xh).max() / max(1.0, np.abs(xh).max()))
-        print(f"cholsol: call {k} ({'cold' if k == 0 else 'warm'}) "
+        print(f"{label}: call {k} ({'cold' if k == 0 else 'warm'}) "
               f"residual={res:.3e} host_rel_diff={dev:.3e}", flush=True)
         check(bool(np.isfinite(x).all()) and x.shape == (n,),
-              f"cholsol call {k}: bad answer")
-        check(dev <= 1e-9, f"cholsol call {k}: differs from the host engine "
+              f"{label} call {k}: bad answer")
+        check(dev <= 1e-9, f"{label} call {k}: differs from the host engine "
               f"by {dev:.3e}")
-    plan, depth = s._mf_plan, 0
-    while isinstance(plan, MFPlan):
-        plan, depth = plan.skel_plan, depth + 1
-    tail = plan.tail if plan is not None else None
-    print(f"cholsol: n={n} nnz={a.nnz()} lnz={int(s.cp[n])} analysis_s="
-          f"{t_an:.4f} "
-          f"mf_depth={depth} innermost_n={getattr(plan, 'n', None)} "
-          f"innermost_levels={len(plan.levels) if plan is not None else None} "
-          f"innermost_cut={tail.cut if tail else None} "
-          f"innermost_tail={tail.d if tail else None} routes="
-          + ",".join(map(str, routes))
+    print(f"{label}: n={n} nnz={a.nnz()} lnz={int(s.cp[n])} "
+          f"{skeleton_txt(s)} routes=" + ",".join(map(str, routes))
           + " wall_s=" + ",".join(f"{w:.4f}" for w in walls)
           + " host_engine_chol_plus_solve_s="
           + ",".join(f"{w:.4f}" for w in host_walls)
           + f" sweep_launches={launches}", flush=True)
-    check(set(routes) == {"device_mf"}, f"cholsol routes {routes}, not all "
+    check(set(routes) == {"device_mf"}, f"{label} routes {routes}, not all "
           "the device multifrontal Cholesky")
+    return launches
+
+
+def phase_cholsol(seed: int, device: str = "cuda"):
+    """cholsol on the card: one cold and three warm calls on the
+    CHOL_GRID Laplacian with the analysis reused, checked against the C++
+    engine, on its route (the front tree) and on the skeleton route
+    (`skeleton_route_sym`), whose sweeps are replayed; then the error
+    contracts. Returns (the Laplacian, its analysis, the skeleton route's
+    analysis, the kernel launches of the run)."""
+    from rsparse_tpu_torch import NoPivotError, NotPositiveDefiniteError, Sprs
+    from rsparse_tpu_torch import cholsol, lusol, schol
+    from rsparse_tpu_torch.factor.front_tree import FrontTree
+
+    n, Ap, Ai, Ax = laplacian_5pt(CHOL_GRID)
+    a = Sprs(len(Ax), n, n, Ap, Ai, Ax)
+    rng = np.random.default_rng(seed + 8)
+    bs = [rng.standard_normal(n) for _ in range(4)]
+    t0 = time.perf_counter()
+    s = schol(a, 1)
+    print(f"cholsol: analysis_s={time.perf_counter() - t0:.4f}", flush=True)
+    launches = cholsol_calls(a, s, bs, "cholsol", device)
+    check(isinstance(s._mf_plan.skel_plan, FrontTree), "cholsol: the "
+          f"skeleton is not a front tree ({skeleton_txt(s)})")
     print("cholsol profile (1 warm call): " + device_profile(
         lambda: cholsol(a, bs[0].copy(), 1, sym=s, device=device), 1),
         flush=True)
+    t0 = time.perf_counter()
+    skel_s = skeleton_route_sym(a)
+    print(f"cholsol skeleton route: plan_s={time.perf_counter() - t0:.2f}",
+          flush=True)
+    launches += cholsol_calls(a, skel_s, bs, "cholsol skeleton route", device)
+    check(not isinstance(skel_s._mf_plan.skel_plan, FrontTree),
+          "cholsol skeleton route: the skeleton is a front tree")
     replay_cholsol_sweeps(
-        lambda: cholsol(a, bs[0].copy(), 1, sym=s, device=device))
+        lambda: cholsol(a, bs[0].copy(), 1, sym=skel_s, device=device))
 
     # error contracts on the card
     def negated(m, col):
@@ -1257,7 +1321,7 @@ def phase_cholsol(seed: int, device: str = "cuda"):
         print(f"lusol: NoPivotError raised (n={sing.n})", flush=True)
     else:
         raise SmokeError("lusol: no NoPivotError on a singular matrix")
-    return a, s, launches
+    return a, s, skel_s, launches
 
 
 @contextlib.contextmanager
@@ -1434,16 +1498,14 @@ def replay_spmm(label: str, seen: dict) -> tuple:
 
 
 def replay_cholsol_sweeps(call) -> None:
-    """Every kernel sweep one cholsol call launches, recorded with its
-    inputs and replayed (`replay_sweeps`): the factorization's
-    W = L_NN^-1 C(N, T) (float64, B = the dense tail's width) and the
-    solve's two B = 1 sweeps of L_NN (kinds 0 and 2), when the innermost
-    leading block is too large to densify."""
+    """Every kernel sweep one cholsol call on the skeleton route launches,
+    recorded with its inputs and replayed (`replay_sweeps`): the
+    factorization's W = L_NN^-1 C(N, T) (float64, B = the dense tail's
+    width) and the solve's two B = 1 sweeps of L_NN (kinds 0 and 2); at
+    least one must be."""
     seen = record_sweeps(call)
-    if not seen:
-        print("cholsol: no sweep (the innermost leading block is dense)",
-              flush=True)
-    replay_sweeps("cholsol", seen,
+    check(len(seen) >= 1, "cholsol skeleton route: no kernel sweep recorded")
+    replay_sweeps("cholsol skeleton route", seen,
                   lambda B: "L_NN " + ("factor" if B > 1 else "solve"))
 
 
@@ -1813,11 +1875,13 @@ def replay_new(label: str, seen: dict, keep) -> tuple:
     return replay_sweeps(label, seen, lambda B: f"B={B}")
 
 
-def multi_cholsol(lap, lap_sym, seed: int, device: str):
-    """cholsol_multi on the CHOL_GRID Laplacian with phase 8's analysis,
-    B[n, 128]: one cold (its first call) and three warm calls, route
-    device_mf, held to one C++ factorization plus 128 sequential C++ solves;
-    the skeleton's f64 B = 128 sweeps replayed. Returns (launches, sweep
+def multi_cholsol(lap, lap_sym, seed: int, device: str, label: str,
+                  sweeps: bool):
+    """cholsol_multi on the CHOL_GRID Laplacian with one of phase 8's
+    analyses, B[n, 128]: one cold (its first call) and three warm calls,
+    route device_mf, held to one C++ factorization plus 128 sequential C++
+    solves; with `sweeps` (the skeleton route) the skeleton's f64 B = 128
+    sweeps replayed, at least one call each. Returns (launches, sweep
     numbers, the largest kernel difference)."""
     from rsparse_tpu_torch import cholsol_multi
 
@@ -1839,24 +1903,26 @@ def multi_cholsol(lap, lap_sym, seed: int, device: str):
     t_host = time.perf_counter() - t0
     devs = [float(np.abs(X - Xh).max() / max(1.0, np.abs(Xh).max()))
             for X in xs]
-    print(f"cholsol_multi: n={n} B={NRHS} routes={','.join(routes)} wall_s="
-          f"{walls_txt(walls)} host_engine_chol_plus_128_solves_s={t_host:.4f} "
+    print(f"{label}: n={n} B={NRHS} {skeleton_txt(lap_sym)} routes="
+          f"{','.join(routes)} wall_s={walls_txt(walls)} "
+          f"host_engine_chol_plus_128_solves_s={t_host:.4f} "
           f"host_rel_diff={max(devs):.3e} sweep_launches={launches}",
           flush=True)
     for X in xs:
         check(X.shape == (n, NRHS) and bool(np.isfinite(X).all()),
-              "cholsol_multi: bad answer")
-    check(set(routes) == {"device_mf"}, f"cholsol_multi routes {routes}, not "
+              f"{label}: bad answer")
+    check(set(routes) == {"device_mf"}, f"{label} routes {routes}, not "
           "all the device multifrontal tree")
-    check(max(devs) <= 1e-9, f"cholsol_multi differs from the C++ engine by "
+    check(max(devs) <= 1e-9, f"{label} differs from the C++ engine by "
           f"{max(devs):.3e}")
-    check(launches >= 4, f"cholsol_multi: only {launches} kernel launches in "
-          "4 calls")
-    print("cholsol_multi profile (1 warm call): " + device_profile(call, 1),
+    print(f"{label} profile (1 warm call): " + device_profile(call, 1),
           flush=True)
-    sweeps, err = replay_new("cholsol_multi", record_sweeps(call),
-                             lambda dt, b: b == NRHS)
-    return launches, sweeps, err
+    if not sweeps:
+        return launches, [], 0.0
+    check(launches >= 4, f"{label}: only {launches} kernel launches in "
+          "4 calls")
+    out, err = replay_new(label, record_sweeps(call), lambda dt, b: b == NRHS)
+    return launches, out, err
 
 
 def multi_lusol(a, s, seed: int, device: str):
@@ -2095,16 +2161,18 @@ def multi_cholsol_ir(lap, lap_sym, seed: int, device: str):
     return launches, sweeps, err
 
 
-def phase_multi(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
+def phase_multi(a, lu_sym, lap, lap_sym, skel_sym, qr: dict, seed: int,
                 device: str = "cuda"):
     """Phase 11: the batched and serving drivers at full width, each
     driven with the launch counts set to 0 just before it and read just
-    after. Returns (launches by path, the new sweeps' numbers, the largest
-    kernel difference)."""
+    after (cholsol_multi on both of phase 8's routes). Returns (launches
+    by path, the new sweeps' numbers, the largest kernel difference)."""
     t0 = time.perf_counter()
     by_path, sweeps, max_abs = {}, [], 0.0
-    by_path["cholsol_multi"], out, err = multi_cholsol(lap, lap_sym, seed,
-                                                       device)
+    by_path["cholsol_multi"] = multi_cholsol(
+        lap, lap_sym, seed, device, "cholsol_multi", False)[0]
+    by_path["cholsol_multi_skeleton"], out, err = multi_cholsol(
+        lap, skel_sym, seed, device, "cholsol_multi skeleton route", True)
     sweeps, max_abs = sweeps + out, max(max_abs, err)
     by_path["lusol_multi"] = multi_lusol(a, lu_sym, seed, device)
     by_path["qrsol_serve"], by_path["qrsol_multi"], out, err = multi_qrsol(
@@ -2175,17 +2243,19 @@ def check_vals(label: str, xs, routes, K: int, n: int, launches: int,
           f"calls (at most {most}: one per sweep for all {K} instances)")
 
 
-def vals_cholsol(lap, lap_sym, seed: int, device: str, keep: dict):
-    """cholsol_vals on the CHOL_GRID Laplacian with phase 8's analysis:
-    K = 16 instances, diagonals scaled by 1 + 0.25k (the JAX bench's
-    family, bench.py:336-340), B[K, n] from the seed. One cold and one warm
-    call (route device_mf, no instance re-solved), every instance held to
-    the C++ engine's factorization and solve (1e-9 relative), walls beside
-    those K C++ solves and K port cholsol calls; then one instance's
+def vals_cholsol(lap, lap_sym, seed: int, device: str, keep: dict,
+                 label: str, sweeps: bool):
+    """cholsol_vals on the CHOL_GRID Laplacian with one of phase 8's
+    analyses: K = 16 instances, diagonals scaled by 1 + 0.25k (the JAX
+    bench's family, bench.py:336-340), B[K, n] from the seed. One cold and
+    one warm call (route device_mf, no instance re-solved), every instance
+    held to the C++ engine's factorization and solve (1e-9 relative), walls
+    beside those K C++ solves and K port cholsol calls; then one instance's
     diagonal negated must raise NotPositiveDefiniteError naming exactly it;
-    the instance-batched sweeps replayed. Keeps (AxK, B, the warm call's
-    X, the C++ engine's X) in keep["chol"]. Returns (launches, sweep
-    numbers, the largest kernel difference)."""
+    with `sweeps` (the skeleton route) the instance-batched sweeps
+    replayed, at least one. Keeps (AxK, B, the warm call's X, the C++
+    engine's X) in keep[label]. Returns (launches, sweep numbers, the
+    largest kernel difference)."""
     from rsparse_tpu_torch import (NotPositiveDefiniteError, Sprs, cholsol,
                                    cholsol_vals)
     from rsparse_tpu_torch.ops.plan import col_ids
@@ -2212,40 +2282,42 @@ def vals_cholsol(lap, lap_sym, seed: int, device: str, keep: dict):
                                    for k in range(K)], 1)
     errs = inst_rel(xs[-1], Xh, range(K))
     dev = max(max(inst_rel(X, Xh, range(K))) for X in xs)
-    print(f"cholsol_vals: n={n} K={K} routes={routes} wall_s="
+    print(f"{label}: n={n} K={K} {skeleton_txt(lap_sym)} routes={routes} "
+          f"wall_s="
           f"{walls_txt(walls)} host_engine_{K}_chol_plus_solve_s="
           f"{t_host:.4f} port_{K}_cholsol_loop_s={loop[0]:.4f} upload_s="
           f"{up:.4f} ({AxK.nbytes} bytes) peak_mem_bytes={peak} "
           f"host_rel_diff_per_instance={errs_txt(errs)} "
           f"sweep_launches={launches}", flush=True)
     # a call: the factor's W sweep, then two per solve (at most 5 solves)
-    check_vals("cholsol_vals", xs, routes, K, n, launches, 2 * 11)
-    check(launches >= 2 * 2, f"cholsol_vals: only {launches} kernel "
-          "launches in 2 calls")
-    check(dev <= 1e-9, f"cholsol_vals differs from the C++ engine by "
-          f"{dev:.3e}")
-    keep["chol"] = (AxK, B, xs[-1], Xh)
+    check_vals(label, xs, routes, K, n, launches, 2 * 11)
+    check(launches >= 2 * 2 or not sweeps, f"{label}: only {launches} "
+          "kernel launches in 2 calls")
+    check(dev <= 1e-9, f"{label} differs from the C++ engine by {dev:.3e}")
+    keep[label] = (AxK, B, xs[-1], Xh)
     kb = K // 2 + 1
     bad = AxK.copy()
     bad[kb, diag] *= -1.0
     try:
         cholsol_vals(lap, bad, B, 1, sym=lap_sym, device=device)
     except NotPositiveDefiniteError as e:
-        check(f"instances [{kb}] are not" in str(e), f"cholsol_vals: the "
+        check(f"instances [{kb}] are not" in str(e), f"{label}: the "
               f"error names other instances: {e}")
-        print(f"cholsol_vals: NotPositiveDefiniteError raised naming "
+        print(f"{label}: NotPositiveDefiniteError raised naming "
               f"instance {kb} ({lap_sym._vals_route})", flush=True)
     else:
-        raise SmokeError("cholsol_vals: no NotPositiveDefiniteError on an "
+        raise SmokeError(f"{label}: no NotPositiveDefiniteError on an "
                          "indefinite instance")
-    print("cholsol_vals profile (1 warm call): "
+    print(f"{label} profile (1 warm call): "
           + device_profile(call, 1, both=True), flush=True)
-    sweeps, err = replay_sweeps(
-        "cholsol_vals", {k: v for k, v in record_sweeps(call).items()
-                         if v[1].dim() == 3},
+    if not sweeps:
+        return launches, [], 0.0
+    out, err = replay_sweeps(
+        label, {k: v for k, v in record_sweeps(call).items()
+                if v[1].dim() == 3},
         lambda B: "L_NN " + ("factor" if B > 1 else "solve"))
-    check(len(sweeps) >= 1, "cholsol_vals: no instance-batched sweep")
-    return launches, sweeps, err
+    check(len(out) >= 1, f"{label}: no instance-batched sweep")
+    return launches, out, err
 
 
 def vals_lusol(a, s, seed: int, device: str, keep: dict):
@@ -2399,18 +2471,21 @@ def vals_qrsol(qr: dict, seed: int, device: str, keep: dict):
     return launches, sweeps, max_abs
 
 
-def phase_vals(a, lu_sym, lap, lap_sym, qr: dict, seed: int,
+def phase_vals(a, lu_sym, lap, lap_sym, skel_sym, qr: dict, seed: int,
                device: str = "cuda", keep: Optional[dict] = None):
     """Phase 12: the batched-values drivers at full width, each driven
-    with the launch counts set to 0 just before it and read just after;
-    their inputs and answers kept in `keep` (for phase 14). Returns
-    (launches by path, the instance-batched sweeps' numbers, the largest
-    kernel difference)."""
+    with the launch counts set to 0 just before it and read just after
+    (cholsol_vals on both of phase 8's routes); their inputs and answers
+    kept in `keep` (for phase 14). Returns (launches by path, the
+    instance-batched sweeps' numbers, the largest kernel difference)."""
     t0 = time.perf_counter()
     keep = {} if keep is None else keep
     by_path, sweeps, max_abs = {}, [], 0.0
-    by_path["cholsol_vals"], out, err = vals_cholsol(lap, lap_sym, seed,
-                                                     device, keep)
+    by_path["cholsol_vals"] = vals_cholsol(
+        lap, lap_sym, seed, device, keep, "cholsol_vals", False)[0]
+    by_path["cholsol_vals_skeleton"], out, err = vals_cholsol(
+        lap, skel_sym, seed, device, keep, "cholsol_vals skeleton route",
+        True)
     sweeps, max_abs = sweeps + out, max(max_abs, err)
     by_path["lusol_vals"] = vals_lusol(a, lu_sym, seed, device, keep)
     by_path["qrsol_vals"], out, err = vals_qrsol(qr, seed, device, keep)
@@ -2764,7 +2839,8 @@ def general_utils(lap, lap_sym, spmv, seed: int, device: str) -> dict:
         f"work_per_s={v['work_per_s'] if v['work_per_s'] is None else format(v['work_per_s'], '.4e')}"
         for k, v in sorted(met.items())), flush=True)
     # beside the JAX package's phases, the port's own spans of the route
-    port_only = {"factor.plan", "factor.numeric", "refine.readback"}
+    port_only = {"factor.plan", "factor.numeric", "factor.fronts",
+                 "refine.readback"}
     check(lap_sym._chol_route == "device_mf" and set(met) - port_only == {
         "cholsol.symbolic", "cholsol.oneshot"},
         f"utils: cholsol recorded {sorted(met)} on route {lap_sym._chol_route}")
@@ -3090,10 +3166,12 @@ def dist_solvers(mesh, a, lu_sym, lap, lap_sym, qr: dict, seed: int,
     s1 = schol(lap, 1)
     xh = chol_host_solves(n, chol_host_factor(lap, s1),
                           np.asarray(s1.pinv, np.int64), b[:, None])[:, 0]
+    # its factorization takes the front tree, which runs no sweep, and its
+    # halo sweeps are level loops: the kernel may not launch
     dist_report("dist_cholsol", lambda: par.dist_cholsol(lap, b, mesh, 1),
                 lambda x: (check(rel_np(x, xh) <= 1e-9, "dist_cholsol "
                                  "differs from the C++ engine")
-                           or rel_np(x, xh)), by_path, seen, path="must")
+                           or rel_np(x, xh)), by_path, seen, path="may")
     nl, nz = a.n, a.nnz()
     bl = rng.standard_normal(nl)
     s0 = sqr(a, 1, False)
@@ -3145,13 +3223,13 @@ def dist_solvers(mesh, a, lu_sym, lap, lap_sym, qr: dict, seed: int,
     torch.cuda.empty_cache()
 
 
-def dist_vals(mesh, a, lu_sym, lap, lap_sym, qr: dict, vals: dict,
-              device: str, by_path: dict, seen: dict) -> None:
-    """dist_cholsol_vals, dist_lusol_vals and dist_qrsol_vals (both
-    branches) on phase 12's inputs and analyses over the data axis of the
-    one-rank mesh, each held to phase 12's answers (1e-12: at D = 1 the
-    same computation) and to the C++ engine's to phase 12's tolerances
-    (1e-9, 1e-8, 1e-9)."""
+def dist_vals(mesh, a, lu_sym, lap, lap_sym, skel_sym, qr: dict,
+              vals: dict, device: str, by_path: dict, seen: dict) -> None:
+    """dist_cholsol_vals (on both of phase 8's routes: sweeps only on the
+    skeleton route), dist_lusol_vals and dist_qrsol_vals (both branches) on
+    phase 12's inputs and analyses over the data axis of the one-rank mesh,
+    each held to phase 12's answers (1e-12: at D = 1 the same computation)
+    and to the C++ engine's to phase 12's tolerances (1e-9, 1e-8, 1e-9)."""
     from rsparse_tpu_torch import parallel as par
 
     def held(label, X, X12, Xh, lim, ks=None):
@@ -3164,12 +3242,14 @@ def dist_vals(mesh, a, lu_sym, lap, lap_sym, qr: dict, vals: dict,
         check(eh <= lim, f"dist {label}: {eh:.3e} from the C++ engine")
         return max(e12, eh)
 
-    AxK, B, X12, Xh = vals["chol"]
-    dist_report("dist_cholsol_vals", lambda: par.dist_cholsol_vals(
-        lap, AxK, B, mesh, 1, sym=lap_sym),
-        lambda X: held("dist_cholsol_vals", X, X12, Xh, 1e-9), by_path, seen,
-        path="must", extra=lambda _: f" K={len(AxK)} route="
-        f"{lap_sym._vals_route}")
+    for label, s, path in (("cholsol_vals", lap_sym, "may"),
+                           ("cholsol_vals skeleton route", skel_sym, "must")):
+        AxK, B, X12, Xh = vals[label]
+        dist_report(f"dist_{label}", lambda: par.dist_cholsol_vals(
+            lap, AxK, B, mesh, 1, sym=s),
+            lambda X: held(f"dist_{label}", X, X12, Xh, 1e-9), by_path,
+            seen, path=path, extra=lambda _: f" K={len(AxK)} route="
+            f"{s._vals_route}")
     AxK, B, X12, Xh = vals["lu"]
     dist_report("dist_lusol_vals", lambda: par.dist_lusol_vals(
         a, AxK, B, mesh, 1, 1e-6, sym=lu_sym),
@@ -3185,8 +3265,8 @@ def dist_vals(mesh, a, lu_sym, lap, lap_sym, qr: dict, vals: dict,
             extra=lambda _: f" K={len(AxK)} route={s._vals_route}")
 
 
-def phase_dist(a, lu_sym, lap, lap_sym, qr: dict, vals: dict, seed: int,
-               device: str = "cuda"):
+def phase_dist(a, lu_sym, lap, lap_sym, skel_sym, qr: dict, vals: dict,
+               seed: int, device: str = "cuda"):
     """Phase 14: the distributed layer (`parallel`, `parallel.halo`,
     `spgemm_general_dist`) on a one-rank NCCL mesh (`make_mesh(device=
     "cuda")`, D = 1: the card is one rank), each call with its launch and
@@ -3211,8 +3291,8 @@ def phase_dist(a, lu_sym, lap, lap_sym, qr: dict, vals: dict, seed: int,
         dist_sweeps(mesh, lap, lap_sym, seed, device)
         dist_solvers(mesh, a, lu_sym, lap, lap_sym, qr, seed, device,
                      by_path, seen)
-        dist_vals(mesh, a, lu_sym, lap, lap_sym, qr, vals, device, by_path,
-                  seen)
+        dist_vals(mesh, a, lu_sym, lap, lap_sym, skel_sym, qr, vals, device,
+                  by_path, seen)
     finally:
         torch.distributed.destroy_process_group()
     sweeps, max_abs = [], 0.0
@@ -3855,19 +3935,19 @@ def main(argv=None) -> int:
         dia, dia_err, dia_counts = phase_dia(args.seed)
         spmm, spmm_err, spmm_counts = phase_spmm(args.seed)
         lusol_launches, lu_sym = phase_lusol(a, args.seed)
-        lap, lap_sym, cholsol_launches = phase_cholsol(args.seed)
+        lap, lap_sym, skel_sym, cholsol_launches = phase_cholsol(args.seed)
         serve_launches, kind2, kind2_err = phase_cholsol_serve(
             lap, lap_sym, args.seed)
         qr_launches, r_sweeps, r_err, qr = phase_qrsol(args.seed)
         multi_paths, multi_sweeps, multi_err = phase_multi(
-            a, lu_sym, lap, lap_sym, qr, args.seed)
+            a, lu_sym, lap, lap_sym, skel_sym, qr, args.seed)
         vals = {}
         vals_paths, vals_sweeps, vals_err = phase_vals(
-            a, lu_sym, lap, lap_sym, qr, args.seed, keep=vals)
+            a, lu_sym, lap, lap_sym, skel_sym, qr, args.seed, keep=vals)
         (general_launches, spmv_general_recs, general_sweeps, spgemm,
          opchain, general_err) = phase_general(lap, lap_sym, args.seed)
         dist_paths, dist_sweeps_, dist_err = phase_dist(
-            a, lu_sym, lap, lap_sym, qr, vals, args.seed)
+            a, lu_sym, lap, lap_sym, skel_sym, qr, vals, args.seed)
         (small_paths, small_sweeps, small_err, small_spmm_paths, small_spmm,
          small_spmm_err) = phase_small(args.seed)
     except SmokeError as e:

@@ -22,6 +22,10 @@ provides it for order >= 0):
      one `index_add_` with static positions.
   4. Skeleton factorization: the compacted system's L values scatter back
      into the global pattern (skeleton columns' L rows are all skeleton).
+     A skeleton with a supernode wider than Smax columns is planned as a
+     tree of supernodal fronts (`front_tree`) instead of a recursive layer
+     or the level machinery: steps 2-3 then assemble straight into its
+     front buffer (its layout is C_skel's).
 
 Instances: the factorization and the solves also run K value arrays of
 one pattern at once (Cx [K, cnnz], X [K, n, B]; the batched-values
@@ -55,6 +59,8 @@ from ..data import Sprs, Symb
 from ..errors import NotPositiveDefiniteError
 from ..ops.plan import col_ids, device_cache
 from ..symbolic import native
+from ..utils.profiling import device_barrier, phase_timer
+from . import front_tree
 from .chol_device import CholPlan, _last_per_key, _pivot_min, _run_chol
 from .lu_device import _index_tensors, _lookup
 
@@ -105,8 +111,10 @@ class MFPlan:
     buckets: List[FrontBucket]
     # skeleton
     skel: np.ndarray  # global indices of skeleton columns (sorted)
-    skel_plan: object  # MFPlan (recursion) or chol_device.CholPlan
-    skel_c_pattern: Tuple[np.ndarray, np.ndarray]  # (Cp, Ci) of C_skel
+    # MFPlan (recursion), chol_device.CholPlan or front_tree.FrontTree
+    skel_plan: object
+    # (Cp, Ci) of C_skel; None for a FrontTree, whose front buffer C_skel is
+    skel_c_pattern: Optional[Tuple[np.ndarray, np.ndarray]]
     skel_a_src: np.ndarray  # positions in global Cx feeding C_skel
     skel_a_dst: np.ndarray  # positions in C_skel values
     skel_l_src: np.ndarray  # positions in skeleton Lx
@@ -189,23 +197,40 @@ def build_mf_plan(c: Sprs, s: Symb, smax: int = SMAX_DEFAULT,
     b_off = np.zeros(len(roots) + 1, dtype=np.int64)
     np.cumsum(b_len, out=b_off[1:])
 
-    # ---- skeleton C pattern: C(skel, skel) + the B cliques (upper) ------
+    # ---- skeleton symbolic ------------------------------------------------
+    sparent = np.where(parent[skel] >= 0,
+                       g[np.clip(parent[skel], 0, n - 1)], -1)
+    scp = np.zeros(ns + 1, dtype=np.int64)
+    scp[1:] = np.cumsum(np.diff(Lp)[skel])
     keep = np.nonzero((front_of[crows] < 0) & (front_of[ccols] < 0))[0]
     keep = np.sort(keep[_last_per_key(ckeys[keep])])  # last-wins duplicates
     a_keys = g[ccols[keep]] * np.int64(ns) + g[crows[keep]]
-    clique = []
-    for lb in np.unique(b_len[b_len > 0]):
-        fis = np.nonzero(b_len == lb)[0]
-        gb = g[b_row[b_off[fis][:, None] + np.arange(lb)]]  # [F, lb] sorted
-        xs, ys = np.triu_indices(lb)
-        clique.append((gb[:, ys] * np.int64(ns) + gb[:, xs]).ravel())
-    skeys = np.unique(np.concatenate([a_keys] + clique))
-    srows, scols = skeys % ns, skeys // ns
-    sCp = np.zeros(ns + 1, dtype=np.int64)
-    np.cumsum(np.bincount(scols, minlength=ns), out=sCp[1:])
-    s_cnnz = len(skeys)
-    sk_order = np.arange(s_cnnz, dtype=np.int64)
-    skel_a_dst = _lookup(skeys, sk_order, a_keys)
+    tree = None
+    if front_tree.has_wide(sparent, np.diff(scp), smax):
+        # C_skel is the tree's front buffer: entries go to their fronts
+        def below(t):
+            cnt = np.diff(Lp)[skel[t]] - 1
+            return g[Li[_ranges(Lp[skel[t]] + 1, cnt)]], cnt
+
+        tree, dst = front_tree.build_front_tree(sparent, scp, below, smax)
+        sCp = srows = None
+        s_cnnz = tree.size
+    else:
+        # ---- skeleton C pattern: C(skel, skel) + the B cliques (upper) --
+        clique = []
+        for lb in np.unique(b_len[b_len > 0]):
+            fis = np.nonzero(b_len == lb)[0]
+            gb = g[b_row[b_off[fis][:, None] + np.arange(lb)]]  # [F, lb]
+            xs, ys = np.triu_indices(lb)
+            clique.append((gb[:, ys] * np.int64(ns) + gb[:, xs]).ravel())
+        skeys = np.unique(np.concatenate([a_keys] + clique))
+        srows, scols = skeys % ns, skeys // ns
+        sCp = np.zeros(ns + 1, dtype=np.int64)
+        np.cumsum(np.bincount(scols, minlength=ns), out=sCp[1:])
+        s_cnnz = len(skeys)
+        sk_order = np.arange(s_cnnz, dtype=np.int64)
+        dst = lambda keys: _lookup(skeys, sk_order, keys)
+    skel_a_dst = dst(a_keys)
 
     # ---- shape buckets ---------------------------------------------------
     keys = [(_next_pow2(max(int(sz[r]), 1)), _next_pow2(max(int(lb), 1)))
@@ -217,27 +242,24 @@ def build_mf_plan(c: Sprs, s: Symb, smax: int = SMAX_DEFAULT,
     for (sp, bp), fis in sorted(buckets_map.items()):
         buckets.append(_bucket(
             np.asarray(fis, np.int64), sp, bp, n, ns, g, starts, sz[roots],
-            bk, b_off, b_len, front_of, Lp, Li, lcols, ckeys_s, corder,
-            skeys, sk_order))
+            bk, b_off, b_len, front_of, Lp, Li, lcols, ckeys_s, corder, dst))
 
-    # ---- skeleton symbolic + plan ---------------------------------------
-    sparent = np.where(parent[skel] >= 0,
-                       g[np.clip(parent[skel], 0, n - 1)], -1)
-    scp = np.zeros(ns + 1, dtype=np.int64)
-    scp[1:] = np.cumsum(np.diff(Lp)[skel])
-    c_skel = Sprs(s_cnnz, ns, ns, sCp, srows, np.zeros(s_cnnz))
-    s_sub = Symb(parent=sparent, cp=scp)
-    skel_plan = None
-    if ns > RECURSE_MIN and depth < MAX_DEPTH:
-        skel_plan = build_mf_plan(c_skel, s_sub, smax, depth + 1)
+    # ---- skeleton plan ---------------------------------------------------
+    skel_plan = tree
     if skel_plan is None:
-        skel_plan = build_chol_plan(c_skel, s_sub)
+        c_skel = Sprs(s_cnnz, ns, ns, sCp, srows, np.zeros(s_cnnz))
+        s_sub = Symb(parent=sparent, cp=scp)
+        if ns > RECURSE_MIN and depth < MAX_DEPTH:
+            skel_plan = build_mf_plan(c_skel, s_sub, smax, depth + 1)
+        if skel_plan is None:
+            skel_plan = build_chol_plan(c_skel, s_sub)
     # map skeleton L positions -> global L positions (both diag-first asc)
     lens = np.diff(Lp)[skel]
     assert np.array_equal(np.diff(skel_plan.Lp), lens)
     return MFPlan(
         n=n, lnz=lnz, Lp=Lp, Li=Li, buckets=buckets,
-        skel=skel, skel_plan=skel_plan, skel_c_pattern=(sCp, srows),
+        skel=skel, skel_plan=skel_plan,
+        skel_c_pattern=None if tree is not None else (sCp, srows),
         skel_a_src=keep, skel_a_dst=skel_a_dst,
         skel_l_src=np.arange(int(skel_plan.Lp[ns]), dtype=np.int64),
         skel_l_dst=_ranges(Lp[skel], lens), skel_cnnz=s_cnnz,
@@ -245,10 +267,10 @@ def build_mf_plan(c: Sprs, s: Symb, smax: int = SMAX_DEFAULT,
 
 
 def _bucket(fis, sp, bp, n, ns, g, starts, lens, bk, b_off, b_len,
-            front_of, Lp, Li, lcols, ckeys_s, corder, skeys,
-            sk_order) -> FrontBucket:
+            front_of, Lp, Li, lcols, ckeys_s, corder, dst) -> FrontBucket:
     """One shape bucket's maps, for the fronts `fis` (ascending). `bk`
-    holds front * n + row for every B row, sorted (front-major)."""
+    holds front * n + row for every B row, sorted (front-major); `dst`
+    maps C_skel keys (col * ns + row) to positions in its values."""
     F = len(fis)
     a0, ls, lb = starts[fis], lens[fis], b_len[fis]
     sl = np.arange(sp)
@@ -293,7 +315,7 @@ def _bucket(fis, sp, bp, n, ns, g, starts, lens, bk, b_off, b_len,
           & (bl[:, None] <= bl[None, :]))
     st, xs, ys = np.nonzero(pu)
     gb = np.clip(brow, 0, ns - 1)
-    s_dst = _lookup(skeys, sk_order, gb[st, ys] * np.int64(ns) + gb[st, xs])
+    s_dst = dst(gb[st, ys] * np.int64(ns) + gb[st, xs])
     return FrontBucket(
         sp=sp, bp=bp,
         ass_src=found[ass_f, ass_r, ass_c], ass_f=ass_f, ass_r=ass_r,
@@ -353,30 +375,38 @@ def _front(Lx, Csx, Cx, b: FrontBucket, bdev):
     # padded / missing-diagonal S slots (each once, zero so far): identity
     # pivots
     Ass[..., pad_f, pad_r, pad_r] = 1.0
-    Lss, info = torch.linalg.cholesky_ex(Ass)
-    dmin = (_pivot_min(info, Lss[..., dg_f, dg_r, dg_r]) if len(dg_f)
-            else Cx.new_ones(lead))
     Abs = Cx.new_zeros(lead + (F, bp, sp))
     Abs[..., abs_f, abs_r, abs_c] = Cx[..., abs_src]
-    # L_BS = A_BS Lss^{-T}: solve X Lss^T = A_BS
-    Lbs = torch.linalg.solve_triangular(Lss.mT, Abs, upper=True, left=False)
-    Schur = Lbs @ Lbs.mT
+    Lss, info, Lbs, Schur, Lss_inv = front_tree.factor_fronts(Ass, Abs)
+    dmin = (_pivot_min(info, Lss[..., dg_f, dg_r, dg_r]) if len(dg_f)
+            else Cx.new_ones(lead))
     Lx[..., lss_pos] = Lss[..., lss_f, lss_r, lss_c]
     Lx[..., lbs_pos] = Lbs[..., lbs_f, lbs_r, lbs_c]
     Csx.index_add_(-1, schur_dst, Schur.flatten(-3)[..., schur_src], alpha=-1)
-    # Lss^{-1}: every solve application becomes one batched matmul
-    eye = torch.eye(sp, dtype=Cx.dtype, device=Cx.device).expand(Lss.shape)
-    Lss_inv = torch.linalg.solve_triangular(Lss, eye, upper=False)
     return dmin, (Lss_inv, Lbs)
 
 
 def _chol_mf_values(Cx: torch.Tensor, plan: MFPlan):
-    """Recursive core: factor the values Cx of the plan's system on Cx's
-    device. Returns (Lx[lnz+1], smallest pivots, cache tree); the cache
-    tree (fronts' (Lss_inv, Lbs), skeleton Lxs, tail values, sub-tree)
-    carries the dense factors the solves use. For K instances (Cx
-    [K, cnnz]) every array gains the leading K and each pivot is [K]. It
-    writes nothing on the plan but device index tensors."""
+    """Factor the values Cx of the plan's system on Cx's device. Returns
+    (Lx[lnz+1], smallest pivots, cache tree); the cache tree (fronts'
+    (Lss_inv, Lbs), skeleton Lxs, tail values, sub-tree or the front
+    tree's values) carries the dense factors the solves use. For K
+    instances (Cx [K, cnnz]) every array gains the leading K and each
+    pivot is [K]. It writes nothing on the plan but device index tensors.
+    Counts the columns it factors (`_chol_mf_values.cols`), and of them
+    those in the front tree's fronts wider than Smax
+    (`_chol_mf_values.wide_front_cols`), per instance."""
+    k = int(np.prod(Cx.shape[:-1]))
+    _chol_mf_values.cols += k * plan.n
+    return _mf_values(Cx, plan, k)
+
+
+_chol_mf_values.cols = 0  # columns factored by the multifrontal route
+_chol_mf_values.wide_front_cols = 0  # of them, columns in wide fronts
+
+
+def _mf_values(Cx: torch.Tensor, plan: MFPlan, k: int):
+    """`_chol_mf_values`' recursive core (k: instances)."""
     dev = _factor_dev(plan, Cx.device)
     lead = Cx.shape[:-1]
     Lx = Cx.new_zeros(lead + (plan.lnz + 1,))
@@ -392,7 +422,16 @@ def _chol_mf_values(Cx: torch.Tensor, plan: MFPlan):
     Cs = Csx[..., : plan.skel_cnnz]
     tail_vals = sub_cache = None
     if isinstance(sp, MFPlan):  # recursive multifrontal layer
-        Lxs, dsub, sub_cache = _chol_mf_values(Cs, sp)
+        Lxs, dsub, sub_cache = _mf_values(Cs, sp, k)
+    elif isinstance(sp, front_tree.FrontTree):  # Cs is its front buffer
+        # timed to the card's end, recording or not: the subtree fronts
+        # finish before the span opens, the tree's fronts inside it
+        sync = device_barrier(Cx.device) or (lambda: None)
+        sync()
+        with phase_timer("factor.fronts"):
+            Lxs, dsub, sub_cache = front_tree.tree_values(Cs, sp)
+            sync()
+        _chol_mf_values.wide_front_cols += k * sp.wide_cols
     else:
         assert isinstance(sp, CholPlan)
         Lxs, dsub, tail_vals = _run_chol(sp, Cs)
@@ -427,21 +466,6 @@ def chol_mf(c: Sprs, s: Symb, plan: MFPlan, device):
 # ---------------------------------------------------------------------------
 # Multifrontal solves: dense front ops + the innermost skeleton
 # ---------------------------------------------------------------------------
-
-
-def _fwd_front(X, Ds, Lss_inv, Lbs, srow, brow):
-    """Forward front phase (in place): z_S = Lss^{-1} b_S; accumulate
-    Lbs z into the skeleton delta Ds. X: [(K,) n+1, B] (garbage row n); Ds:
-    [(K,) ns+1, B] (garbage row ns)."""
-    zs = Lss_inv @ X[..., srow, :]  # [(K,) F, Sp, B]
-    X[..., srow, :] = zs  # padded slots write row n
-    Ds.index_add_(-2, brow.reshape(-1), (Lbs @ zs).flatten(-3, -2))
-
-
-def _bwd_front(X, Lss_inv, Lbs, srow, browg):
-    """Backward front phase (in place): x_S = Lss^{-T} (b_S - Lbsᵀ x_B).
-    `browg` holds global row indices of B slots (n = pad)."""
-    X[..., srow, :] = Lss_inv.mT @ (X[..., srow, :] - Lbs.mT @ X[..., browg, :])
 
 
 def _skel_tri_plans(plan: MFPlan):
@@ -495,12 +519,15 @@ def _solve_mf_dev(plan: MFPlan, X: torch.Tensor, cache) -> torch.Tensor:
     lead, B = X.shape[:-2], X.shape[-1]
     Xd = torch.cat([X, X.new_zeros(lead + (1, B))], dim=-2)
     Ds = X.new_zeros(lead + (ns + 1, B))
+    # the fronts' updates accumulate into the skeleton delta Ds
     for (Lss_inv, Lbs), (srow, brow, _) in zip(fronts, sdev["buckets"]):
-        _fwd_front(Xd, Ds, Lss_inv, Lbs, srow, brow)
+        front_tree.fwd_front(Xd, Ds, Lss_inv, Lbs, srow, brow)
     skel_idx = sdev["skel_idx"]
     bs = Xd[..., skel_idx, :] - Ds[..., :ns, :]
     if isinstance(plan.skel_plan, MFPlan):  # recursive layer
         ys = _solve_mf_dev(plan.skel_plan, bs, sub_cache)
+    elif isinstance(plan.skel_plan, front_tree.FrontTree):
+        ys = front_tree.tree_solve(plan.skel_plan, bs, sub_cache)
     elif tail_vals is not None:
         # the dense trailing block (and, when densified, the leading block)
         # with precomputed inverses; sweeps only for a large L_NN
@@ -522,5 +549,5 @@ def _solve_mf_dev(plan: MFPlan, X: torch.Tensor, cache) -> torch.Tensor:
     Xd[..., skel_idx, :] = ys
     for (Lss_inv, Lbs), (srow, _, browg) in zip(reversed(fronts),
                                                 reversed(sdev["buckets"])):
-        _bwd_front(Xd, Lss_inv, Lbs, srow, browg)
+        front_tree.bwd_front(Xd, Lss_inv, Lbs, srow, browg)
     return Xd[..., :n, :]
