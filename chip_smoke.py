@@ -1341,7 +1341,9 @@ def recording():
             seen[key] = (vals.clone(), X.clone(), plan, kind)
         return real(vals, X, plan, kind, **kw)
 
-    record.launches = 0  # the kernel counts its launches on the module's name
+    # the kernel counts its launches, and its supernodal ones, on the
+    # module's name
+    record.launches = record.supernodal = 0
     sptrsv_cuda.sptrsv_multi = solve.sptrsv_multi = record
     try:
         yield seen

@@ -1,7 +1,8 @@
 // Sparse triangular solve (SpTRSV) over a batch of RHS columns, for Hopper
 // (sm_90a): a dense super-level plus sparse levels, one launch per sweep;
-// or, for an L sweep whose RHS column does not fit in shared memory, a
-// supernodal schedule run as one persistent launch (below).
+// or, for an L sweep of one instance over 32 or more RHS columns whose
+// factor has a supernodal schedule several times shorter than its level
+// schedule, that schedule run as one persistent launch (below).
 //
 // Replaces the TPU kernel rsparse_tpu/ops/sptrsv_pallas.py::_sweep_call and
 // its f64 XLA twin (rsparse_tpu/solve.py::_tri_sweep_multi), which walk the
@@ -53,11 +54,16 @@
 //     first column, are loaded while the phase before runs.
 //
 // Supernodal variant (`snode_sweep_kernel`; kinds 0 and 2 of one instance,
-// B >= 32, where X's column does not fit in a CTA's shared memory:
-// `launch_config` in ops/sptrsv_cuda.py). The level schedule above gives
-// each CTA one RHS column and some 2,600 barriers a sweep at n = 65,536,
-// with X in device memory and one scattered 4-byte atomic per entry and
-// column. Here the schedule is the factor's supernodes (`ops.snode`):
+// B >= 32, on a factor whose pattern `ops.snode` takes and whose panel
+// tree is several times shorter than its level schedule, whether or not
+// X's column fits in a CTA's shared memory: `launch_config` and
+// SNODE_LEVELS in ops/sptrsv_cuda.py). The level schedule above gives each CTA one RHS
+// column and some 2,600 barriers a sweep at n = 65,536 (2,108 sparse levels
+// and a dense block of 1,961 columns for a 24^3 27-point factor, whose
+// separators make the gather form's shared-memory atomics meet on one
+// address), with X in device memory or shared memory and one 4-byte atomic
+// per entry and column. Here the schedule is the factor's supernodes
+// (`ops.snode`):
 // panels of at most 32 consecutive columns with nested patterns, each a
 // dense block (its triangle, then its rows below, row-major, packed by the
 // value prepass with 1 / L[j, j] on the diagonal), and tasks: each bottom
@@ -114,7 +120,10 @@
 // rows below, two barriers, the arrival and the release) plus ~1 us of
 // hand-off; kind 2 the chain first (~7.5 us a part: the partial sums meet
 // in L2), then the subtrees, ~200 us each. Fewer round trips a subtree
-// level and a shorter triangle are the next steps.
+// level and a shorter triangle are the next steps. A 24^3 27-point factor
+// (n = 13,824: a chain of 175 panels above the bottom subtrees, up to 31
+// parts each) takes 1.39 ms a kind 0 sweep and 2.01 ms a kind 2 one,
+// against 3.64 and 45.6 on the shared variant.
 
 #include <cuda_runtime.h>
 

@@ -75,6 +75,7 @@ class Panels:
     vpos: np.ndarray  # int32 [nnz(L)]
     pparent: np.ndarray  # int64 [npanel], -1 at a root
     depth: np.ndarray  # int64 [npanel]: ancestors in the panel tree
+    height: int  # panels on the tree's longest path: the sweep's chain
     root: np.ndarray  # int64 [npanel]: the top panel of its task
     subtree: np.ndarray  # bool [npanel]: in a bottom-subtree task
 
@@ -247,7 +248,8 @@ def snode_panels(n: int, p: np.ndarray, i: np.ndarray,
         prow=i32(prow), pval_off=i32(pval_off[:-1]),
         val_total=int(pval_off[-1]), vslot=i32(vslot),
         vpos=i32(np.r_[p[:-1], pos]), pparent=pparent, depth=depth,
-        root=_root_of(pparent, top), subtree=small)
+        height=int(depth.max()) + 1, root=_root_of(pparent, top),
+        subtree=small)
 
 
 def snode_schedule(pn: Panels, kind: int) -> SnodePlan:

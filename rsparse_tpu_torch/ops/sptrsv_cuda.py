@@ -12,13 +12,16 @@ it solves K factors of one pattern (K instances' values), in one launch.
     `csrc/sptrsv.cu`, one launch per sweep: the plan's dense block (if any)
     as one super-level solved in panels, and the other columns' levels;
     X's column in shared memory when it fits (`launch_config`), in device
-    memory otherwise. Where X's column does not fit, an L sweep (kinds 0
-    and 2) of one instance over B >= SNODE_MIN_B columns takes the
-    "supernodal" variant instead: `plan.snode`'s tasks (`ops.snode`: panels
-    of consecutive columns with nested patterns; bottom subtrees as tasks,
-    the panels above them in parts of their rows below) in one persistent
-    launch, X row-major in device memory, tiles of 32 RHS columns; the
-    rule adapts to the shape alone.
+    memory otherwise. An L sweep (kinds 0 and 2) of one instance over
+    B >= SNODE_MIN_B columns whose plan has `snode`, and whose level
+    schedule is several times as long as its panel tree is high
+    (SNODE_LEVELS), takes the "supernodal" variant instead, whether or not
+    X's column fits: `plan.snode`'s tasks
+    (`ops.snode`: panels of consecutive columns with nested patterns;
+    bottom subtrees as tasks, the panels above them in parts of their rows
+    below) in one persistent launch, X row-major in device memory, tiles of
+    32 RHS columns; the rule adapts to the kind, the instances, the width,
+    the dtype and the pattern alone.
     It counts on `sptrsv_multi.supernodal` as well as `launches`. The
     source's header says what bounds each variant and how. A build or
     launch failure, or a plan the kernel does not take, raises: there is
@@ -78,6 +81,15 @@ PANEL = 32  # dense panel width (csrc/sptrsv.cu kPanel)
 THREADS = 1024  # threads per CTA (csrc/sptrsv.cu kThreads)
 BATCH = 4  # entries per lane loaded together (csrc/sptrsv.cu kBatch)
 SNODE_MIN_B = 32  # fewest RHS columns for the supernodal variant
+# The supernodal variant takes a sweep whose level schedule has at least
+# SNODE_LEVELS[dtype] levels per panel on the panel tree's longest path. On
+# an H100 (B = 128) a panel step of its chain took ~3.4 us, a level of the
+# shared variant ~0.9 us in float32 and ~3.2 us in float64 (1,444 levels,
+# 1,407 panels high: 4.77 ms against 1.30, and 4.85 against 4.55). The L
+# and L' sweeps of a factor broke even at 5.1 levels a panel in float32
+# (1.3-1.5x slower at 2.1-2.6, 0.53-0.81x at 5.4), and in float64 between
+# 1.2 (1.3x slower) and 2.1 (0.47-0.82x) (PERF.md).
+SNODE_LEVELS = {torch.float32: 5.0, torch.float64: 1.5}
 SN_WARPS = 8  # warps per supernodal CTA (csrc/sptrsv.cu kSnWarps)
 PANEL_SN = snode.PANEL  # panel width (csrc/sptrsv.cu kSnWidth)
 
@@ -444,31 +456,33 @@ def _smem_optin(device: torch.device) -> int:
 def launch_config(plan, dtype, device, kind: int, B: int, *, K: int = 1,
                   smem_optin=None) -> dict:
     """The launch shape of a sweep of `kind` over X[(K,) plan.n, B]: the
-    variant and its dynamic shared memory per CTA. "shared" (one CTA per
-    RHS column, X's column in shared memory beside the dense block's x_D)
-    when n <= 2^16 and that fits the card's per-CTA limit (`smem_optin`,
-    read from the card when None); where it does not, "supernodal" for a
-    sweep of kind 0 or 2 over B >= SNODE_MIN_B columns of one instance
-    (K = 1) whose plan has `snode`, else "global" (one CTA per RHS column,
-    X in device memory). Raises when the kernel does not take the plan."""
+    variant and its dynamic shared memory per CTA. "supernodal" for a sweep
+    of kind 0 or 2 over B >= SNODE_MIN_B columns of one instance (K = 1)
+    whose plan has `snode` with at least SNODE_LEVELS[dtype] levels per
+    panel of its panel tree's height, whether or not X's column fits in
+    shared memory; else "shared" (one CTA per RHS column, X's column in
+    shared memory beside the dense block's x_D) when n <= 2^16 and that
+    fits the card's per-CTA limit (`smem_optin`, read from the card when
+    None), else "global" (one CTA per RHS column, X in device memory).
+    Raises when the kernel does not take the plan."""
     device = torch.device(device)
     item = _ITEM[dtype]
     optin = _smem_optin(device) if smem_optin is None else int(smem_optin)
-
-    def block():  # the dense block's padded size, its staged diagonals
-        kpad = _panels(plan.dense.k)[0] if plan.dense is not None else 0
-        return kpad, 2 * PANEL * PANEL if kpad else 0
-
-    # X's column alone is tried first: a supernodal sweep never reads the
-    # dense block, which is found at its first read
-    shared = (plan.n <= 1 << 16 and plan.n * item <= optin
-              and (sum(block()) + plan.n) * item <= optin)
-    if (not shared and kind in (0, 2) and K == 1 and B >= SNODE_MIN_B
-            and plan.snode is not None):
+    # Also where X's column fits in shared memory: on an H100 (B = 128,
+    # f32) a 24^3 27-point factor's L and L' sweeps took 1.39 / 2.01 ms
+    # against 3.64 / 45.6 ms on the shared variant (PERF.md). Chosen before
+    # the dense block, which a supernodal sweep never reads and which is
+    # found at its first read.
+    if (kind in (0, 2) and K == 1 and B >= SNODE_MIN_B
+            and plan.snode is not None
+            and plan.nlev >= SNODE_LEVELS[dtype] * plan.snode.panels.height):
         rows = 16 if item == 4 else 8  # csrc/sptrsv.cu Sn<T>::kRows
         smem = SN_WARPS * (PANEL_SN * 32 + 32 * 36 + 2 * rows * 32) * item
         return {"shared": False, "variant": "supernodal", "smem": smem}
-    kpad, dbuf = block()
+    kpad = _panels(plan.dense.k)[0] if plan.dense is not None else 0
+    dbuf = 2 * PANEL * PANEL if kpad else 0  # the staged diagonal blocks
+    shared = (plan.n <= 1 << 16 and plan.n * item <= optin
+              and (dbuf + kpad + plan.n) * item <= optin)
     smem = (dbuf + kpad + (plan.n if shared else 0)) * item
     if smem > optin:
         raise ValueError(
@@ -687,8 +701,9 @@ def prepare(tx: torch.Tensor, plan, kind: int) -> None:
     the values `tx` would make then: the plan's schedule (`plan.snode`),
     its streams on tx's card and the value prepass. Nothing where the
     variant would not run at B = SNODE_MIN_B (off a card, K instances,
-    kinds 1 and 3, X's column in shared memory) or the kernel does not
-    take the plan (the sweep raises)."""
+    kinds 1 and 3, a pattern without `snode` or with too few levels for
+    its panel tree's height) or the kernel does not take the plan (the
+    sweep raises)."""
     if tx.device.type != "cuda" or tx.dim() != 1:
         return
     try:

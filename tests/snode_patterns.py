@@ -1,9 +1,12 @@
 """The triangles of the supernodal sweep's tests, on the CPU
 (`test_torch_sptrsv_snode.py`) and on the card (`test_torch_kernel.py`):
 Cholesky factors (AMD order) of 5-point Laplacians on grids of 16, 27 and
-40 and of a random SPD matrix; a band matrix in natural order, whose last
-71 columns are one wide root cut into panels; and a lower triangle whose
-panels all have one column (two stars). numpy and the port only: no JAX.
+40, of HPCG's 27-point problem on a 10^3 grid (a 3D factor: separators of
+about a hundred columns, so that the panels above the bottom subtrees have
+up to 226 rows below them, in up to 4 parts) and of a random SPD matrix; a
+band matrix in natural order, whose last 71 columns are one wide root cut
+into panels; and a lower triangle whose panels all have one column (two
+stars). numpy and the port only: no JAX.
 """
 
 import dataclasses
@@ -14,8 +17,8 @@ import rsparse_tpu_torch as rt
 from rsparse_tpu_torch.ops import snode
 from rsparse_tpu_torch.symbolic import _symperm_host, native
 
-PATTERNS = ["poisson16", "poisson27", "poisson40", "random", "wide_root",
-            "width1"]
+PATTERNS = ["poisson16", "poisson27", "poisson40", "hpcg27_10", "random",
+            "wide_root", "width1"]
 # small tasks, so that every pattern has bottom subtrees and panels above
 TASK_ENTRIES = 600
 
@@ -91,6 +94,10 @@ def triangle(name):
 
         if name.startswith("poisson"):
             L = chol(spd(*laplacian_5pt(int(name[7:]))), 1)
+        elif name.startswith("hpcg27"):
+            from benchmark.generators import hpcg27
+
+            L = chol(spd(*hpcg27.make({"grid": int(name[7:])}, None)), 1)
         elif name == "random":
             L = chol(_random_spd(), 1)
         elif name == "wide_root":

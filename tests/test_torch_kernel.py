@@ -114,15 +114,25 @@ def _sweep_case(name, kind):
 @pytest.mark.parametrize("case", ["dense", "levels", "large"])
 def test_kernel_matches_plain_on_card(case, kind, dtype, tol, B):
     """One launch per sweep, against the level loop. f32: atomics reorder
-    the sums from run to run; f64: rounding level."""
+    the sums from run to run; f64: rounding level. The L sweeps (kinds 0
+    and 2) of the two LU factors, whose L has `snode`, take the supernodal
+    variant at B >= 32 (but the `levels` L in float32: 2.1 levels a panel
+    of its panel tree's height, under SNODE_LEVELS), the rest the shared
+    one (X's column fits); the large triangle, which has no `snode`, the
+    global one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from rsparse_tpu_torch.ops.sptrsv_cuda import launch_config
 
     t, plan = _sweep_case(case, kind)
     assert (plan.dense is not None) == (case != "levels")
+    snode = case != "large" and kind in (0, 2)
+    assert (plan.snode is not None) == snode
+    short = case == "dense" or dtype == torch.float64
     cfg = launch_config(plan, dtype, "cuda", kind, B)
-    assert cfg["variant"] == ("global" if case == "large" else "shared")
+    assert cfg["variant"] == (
+        "global" if case == "large" else
+        "supernodal" if snode and short and B >= 32 else "shared")
     tx = torch.as_tensor(t.x[: t.nnz()], dtype=dtype, device="cuda")
     X = torch.as_tensor(np.random.default_rng(B).standard_normal((t.n, B)),
                         dtype=dtype, device="cuda")
@@ -300,8 +310,9 @@ def test_snode_kernel_launches_on_two_streams_on_card():
 def test_snode_prepare_makes_the_first_sweeps_work_on_card():
     """`prepare` (the serve handles' build) makes a supernodal sweep's
     schedule, streams and value prepass, which the first sweep then
-    finds, and not the dense block, which it does not use; a sweep that
-    keeps another variant gets nothing."""
+    finds, and not the dense block, which it does not use, also where X's
+    column fits in shared memory (an LU factor's L); a sweep that keeps
+    another variant (that factor's U) gets nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from rsparse_tpu_torch.ops import sptrsv_cuda
@@ -320,10 +331,14 @@ def test_snode_prepare_makes_the_first_sweeps_work_on_card():
         assert ks["values"][2] is val
         torch.cuda.synchronize()
         assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < 1e-4
-    t, plan = _sweep_case("dense", 0)  # the shared variant
-    tx = torch.as_tensor(t.x[: t.nnz()], dtype=torch.float32, device="cuda")
-    sptrsv_cuda.prepare(tx, plan, 0)
-    assert "snode" not in plan.__dict__
+    for kind in (0, 1):  # fresh plans: the supernodal, the shared variant
+        t, _ = _sweep_case("dense", kind)
+        plan = rt.tri_plan(t, kind)
+        tx = torch.as_tensor(t.x[: t.nnz()], dtype=torch.float32,
+                             device="cuda")
+        sptrsv_cuda.prepare(tx, plan, kind)
+        assert ("snode" in plan.__dict__) == (kind == 0)
+        assert ("dense" in plan.__dict__) == (kind == 1)
 
 
 @pytest.mark.gpu

@@ -5,8 +5,9 @@ package, the kernel's ticket scheduler replayed in numpy in the orders a
 card may run it, and the rule that engages the "supernodal" variant
 (`sptrsv_cuda.launch_config`) at the benchmark cells' shapes.
 
-The triangles are `snode_patterns.PATTERNS`: Cholesky factors of Laplacians
-and of a random SPD matrix, a wide root, and panels all of one column.
+The triangles are `snode_patterns.PATTERNS`: Cholesky factors of Laplacians,
+of a 27-point 3D problem and of a random SPD matrix, a wide root, and panels
+all of one column.
 """
 
 import random
@@ -110,6 +111,8 @@ def test_panels_and_tasks(name, kind):
     assert np.array_equal(k, np.bincount(g)[g])
     m_top = pn.pm[top][g]
     assert np.array_equal(k > 1, upper[g] & (m_top > snode.PART_ROWS))
+    if name.startswith("hpcg27"):  # a 3D factor's separators are parted
+        assert k.max() > 2
     assert np.all(-(-m_top // k) <= np.where(upper[g], snode.PART_ROWS, m_top))
     parts = np.bincount(g)
     has = tparent >= 0
@@ -291,7 +294,8 @@ def _replay(tx, X, plan, kind, ctas, ntile, launches, seed):
 
 
 @pytest.mark.parametrize("kind", [0, 2])
-@pytest.mark.parametrize("name", ["poisson27", "random", "width1"])
+@pytest.mark.parametrize("name", ["poisson27", "hpcg27_10", "random",
+                                  "width1"])
 def test_ticket_scheduler_replayed(name, kind):
     """Any order the card may run the tickets in gives the level sweep's
     answer, launch after launch on the same counters (epochs), with fewer
@@ -328,29 +332,44 @@ def _cell_plans():
 
 
 def test_engagement_at_the_cells_shapes():
-    """The supernodal variant runs exactly where X's column does not fit in
-    a CTA's shared memory, for kinds 0 and 2, one instance and B >= 32:
-    lap2d-256's six sweeps a request take it (float32, and float64 too),
-    chosen without finding the dense block;
-    cd2d-128's keep the shared variant; kinds 1 and 3, B < 32 and K > 1
-    keep the global one."""
+    """The supernodal variant runs wherever a sweep is of kind 0 or 2, of
+    one instance, over B >= 32 columns, on a plan that has `snode` with at
+    least SNODE_LEVELS[dtype] levels per panel of its panel tree's height
+    (5 in float32, 1.5 in float64), whether or not X's column fits in a
+    CTA's shared memory, and is chosen without finding the dense block:
+    lap2d-256's six sweeps a request (float32, and float64 too), cd2d-128's
+    L and a 27-point 3D factor's L and L' (X's column in shared memory;
+    each 16-17 levels a panel) take it. B < 32 and K > 1 keep the shared
+    variant where X's column fits and the global one where it does not;
+    kinds 1 and 3 (cd2d-128's U) keep theirs; so do a 16 x 16 Laplacian's
+    factor in float32 (2.6 levels a panel) and the wide root's band (1.2)."""
     lap, cd = _cell_plans()
+    hp = _triangle("hpcg27_10")
+    hp = {0: rt.tri_plan(hp, 0), 2: rt.tri_plan(hp, 2)}
     f32, f64 = torch.float32, torch.float64
     cfg = lambda plan, kind, B, dtype=f32, **kw: sc.launch_config(
         plan, dtype, "cpu", kind, B, smem_optin=H100_SMEM, **kw)["variant"]
-    for kind, plan in lap.items():
-        assert plan.snode is not None and plan.snode.panels.n == 65536
-        assert cfg(plan, kind, 128) == "supernodal"
-        assert cfg(plan, kind, 128, f64) == "supernodal"
-        assert cfg(plan, kind, 32) == "supernodal"
-        assert "dense" not in plan.__dict__  # the choice did not need it
-        assert cfg(plan, kind, 31) == "global"
-        assert cfg(plan, kind, 128, K=2) == "global"
+    for plans, n, other in ((lap, 65536, "global"), (hp, 1000, "shared")):
+        for kind, plan in plans.items():
+            assert plan.snode is not None and plan.snode.panels.n == n
+            assert cfg(plan, kind, 128) == "supernodal"
+            assert cfg(plan, kind, 128, f64) == "supernodal"
+            assert cfg(plan, kind, 32) == "supernodal"
+            assert "dense" not in plan.__dict__  # the choice did not need it
+            assert cfg(plan, kind, 31) == other
+            assert cfg(plan, kind, 128, K=2) == other
     assert cfg(lap[0], 1, 128) == "global"
     assert cfg(lap[2], 3, 128) == "global"
-    for kind, plan in cd.items():
-        assert plan.n == 16384
-        assert cfg(plan, kind, 128) == "shared"
+    assert cd[0].n == cd[1].n == 16384
+    assert cfg(cd[0], 0, 128) == "supernodal"
+    assert "dense" not in cd[0].__dict__
+    assert cfg(cd[1], 1, 128) == "shared"
+    for name, f64_variant in (("poisson16", "supernodal"),
+                              ("wide_root", "shared")):
+        for kind in (0, 2):
+            plan = rt.tri_plan(_triangle(name), kind)
+            assert cfg(plan, kind, 128) == "shared"
+            assert cfg(plan, kind, 128, f64) == f64_variant
     smem = sc.launch_config(lap[2], f32, "cpu", 2, 128,
                             smem_optin=H100_SMEM)["smem"]
     assert 0 < smem <= H100_SMEM // 2  # two CTAs an SM
