@@ -6,7 +6,8 @@ about a hundred columns, so that the panels above the bottom subtrees have
 up to 226 rows below them, in up to 4 parts) and of a random SPD matrix; a
 band matrix in natural order, whose last 71 columns are one wide root cut
 into panels; and a lower triangle whose panels all have one column (two
-stars). numpy and the port only: no JAX.
+stars). The matrices come from `torch_cases`' families. numpy and the
+port only: no JAX.
 """
 
 import dataclasses
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 
 import rsparse_tpu_torch as rt
+import torch_cases as C
 from rsparse_tpu_torch.ops import snode
 from rsparse_tpu_torch.symbolic import _symperm_host, native
 
@@ -33,28 +35,12 @@ def chol(a, order):
     return rt.Sprs(len(Lx), n, n, Lp, Li, Lx)
 
 
-def spd(n, p, i, x):
-    """The port's Sprs of a square CSC matrix, its values in float64."""
-    return rt.Sprs(len(x), n, n, p, i, np.asarray(x, np.float64))
-
-
 def _random_spd(n=300, seed=3):
-    from bench import rand_csc
-
-    p, i, x = rand_csc(n, n, 4 * n, seed)
-    m = np.zeros((n, n))
-    m[i, np.repeat(np.arange(n), np.diff(p))] = x
-    m = m + m.T
-    m += np.diag(np.abs(m).sum(1) + 1.0)
-    return _dense_csc(m)
-
-
-def _dense_csc(m):
-    n = m.shape[0]
-    r, c = np.nonzero(m.T)  # column-major order: (col, row)
-    p = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(r, minlength=n), out=p[1:])
-    return spd(n, p, c, m.T[r, c])
+    m, _, p, i, x = C.rand_pattern(n, n, 4 * n, seed)
+    d = C.dense((m, n, p, i, x))
+    d = d + d.T
+    d += np.diag(np.abs(d).sum(1) + 1.0)
+    return C.port(d)
 
 
 def _band(n=400, bw=70, seed=5):
@@ -65,7 +51,7 @@ def _band(n=400, bw=70, seed=5):
         m[np.arange(k, n), np.arange(n - k)] = v
     m = m + m.T
     m += np.diag(np.abs(m).sum(1) + 1.0)
-    return _dense_csc(m)
+    return C.port(m)
 
 
 def _two_stars(n=2000, seed=7):
@@ -90,14 +76,10 @@ _TRI: dict = {}
 def triangle(name):
     """The lower triangle of PATTERNS' `name` (built once)."""
     if name not in _TRI:
-        from bench import laplacian_5pt
-
         if name.startswith("poisson"):
-            L = chol(spd(*laplacian_5pt(int(name[7:]))), 1)
+            L = chol(C.port(C.laplacian(int(name[7:]))), 1)
         elif name.startswith("hpcg27"):
-            from benchmark.generators import hpcg27
-
-            L = chol(spd(*hpcg27.make({"grid": int(name[7:])}, None)), 1)
+            L = chol(C.port(C.hpcg27(int(name[7:]))), 1)
         elif name == "random":
             L = chol(_random_spd(), 1)
         elif name == "wide_root":

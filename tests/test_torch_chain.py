@@ -15,30 +15,12 @@ import rsparse_tpu as rs  # noqa: E402
 from rsparse_tpu.ops import chain as jchain  # noqa: E402
 
 import rsparse_tpu_torch as rt  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.ops import ChainExpr, chain  # noqa: E402
 
 KERNELS = ["mxu", "esc"]
+TOL = {"float64": 1e-12, "float32": 1e-5}
 
-
-def _rand(rng, m, n, dens):
-    d = (rng.random((m, n)) < dens) * rng.standard_normal((m, n))
-    aj = rs.Sprs.new_from_vec(d.tolist())
-    return aj, sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-
-
-def _same(ct, cj, f64=True):
-    assert (ct.m, ct.n) == (cj.m, cj.n)
-    assert np.array_equal(np.asarray(ct.p), np.asarray(cj.p))
-    assert np.array_equal(ct.i[: ct.nnz()], cj.i[: cj.nnz()])
-    _close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], f64)
-
-
-def _close(got, want, f64=True):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    assert got.shape == want.shape
-    scale = max(1.0, float(np.abs(want).max(initial=0.0)))
-    assert np.abs(got - want).max(initial=0.0) <= (1e-12 if f64 else 1e-5) * scale
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -46,16 +28,16 @@ def _close(got, want, f64=True):
 def test_gram_chain(kernel, dtype):
     """(AᵀA)*2 + I·0.5 — the qrsol/CSNE Gram pipeline."""
     rng = np.random.default_rng(0)
-    aj, at = _rand(rng, 30, 22, 0.25)
+    aj, at = C.pair(C.rand_density(rng, 30, 22, 0.25))
     ej = jchain(aj).transpose().multiply(aj).scale(2.0).add(rs.Sprs.eye(22), beta=0.5)
     et = chain(at).transpose().multiply(at).scale(2.0).add(rt.Sprs.eye(22), beta=0.5)
     assert isinstance(et, ChainExpr)
-    _same(et.run(dtype, kernel, device="cpu"), ej.run(dtype),
-          dtype == "float64")
-    _same(et.run(dtype, kernel, device="cpu"),
+    C.same_sprs(et.run(dtype, kernel, device="cpu"), ej.run(dtype),
+          TOL[dtype])
+    C.same_sprs(et.run(dtype, kernel, device="cpu"),
           rt.add(rt.scxmat(2.0, rt.multiply(rt.transpose(at, device="cpu"), at,
                                             device="cpu"), device="cpu"),
-                 rt.Sprs.eye(22), 1.0, 0.5, device="cpu"), dtype == "float64")
+                 rt.Sprs.eye(22), 1.0, 0.5, device="cpu"), TOL[dtype])
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
@@ -63,8 +45,8 @@ def test_chain_reuse_fresh_values(kernel):
     """values_fn is a serving handle: same pattern, fresh values, no
     rebuild; distinct leaf matrices get one arg slot each."""
     rng = np.random.default_rng(1)
-    aj, at = _rand(rng, 20, 20, 0.3)
-    bj, bt = _rand(rng, 20, 20, 0.3)
+    aj, at = C.pair(C.rand_density(rng, 20, 20, 0.3))
+    bj, bt = C.pair(C.rand_density(rng, 20, 20, 0.3))
     ej = jchain(aj).multiply(bj).add(aj, alpha=1.0, beta=-3.0)
     et = chain(at).multiply(bt).add(at, alpha=1.0, beta=-3.0)
     fj, ft = ej.values_fn(), et.values_fn("float64", kernel, device="cpu")
@@ -74,30 +56,31 @@ def test_chain_reuse_fresh_values(kernel):
         ax, bx = r2.standard_normal(at.nnz()), r2.standard_normal(bt.nnz())
         want = fj(jnp.asarray(ax), jnp.asarray(bx))
         got = ft(torch.as_tensor(ax), torch.as_tensor(bx))
-        _close(got, want)
-        _close(ft.run(torch.as_tensor(ax), torch.as_tensor(bx), *ft.consts), want)
+        C.close(got, want)
+        C.close(ft.run(torch.as_tensor(ax), torch.as_tensor(bx), *ft.consts),
+                want)
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_chain_leaf_dedup(kernel):
     """chain(A)ᵀ·A uses ONE slot for A."""
     rng = np.random.default_rng(4)
-    aj, at = _rand(rng, 15, 15, 0.3)
+    aj, at = C.pair(C.rand_density(rng, 15, 15, 0.3))
     ej = jchain(aj).transpose().multiply(aj)
     et = chain(at).transpose().multiply(at)
     assert len(et.leaves()) == len(ej.leaves()) == 1
-    _same(et.run(multiply_kernel=kernel, device="cpu"), ej.run())
+    C.same_sprs(et.run(multiply_kernel=kernel, device="cpu"), ej.run())
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_chain_scalar_ops_and_transpose(kernel):
     """add_scalar adds to stored entries only (scpmat)."""
     rng = np.random.default_rng(5)
-    aj, at = _rand(rng, 12, 18, 0.4)
+    aj, at = C.pair(C.rand_density(rng, 12, 18, 0.4))
     ej = jchain(aj).add_scalar(1.25).transpose().scale(-2.0)
     et = chain(at).add_scalar(1.25).transpose().scale(-2.0)
-    _same(et.run(multiply_kernel=kernel, device="cpu"), ej.run())
-    _same(et.run(multiply_kernel=kernel, device="cpu"),
+    C.same_sprs(et.run(multiply_kernel=kernel, device="cpu"), ej.run())
+    C.same_sprs(et.run(multiply_kernel=kernel, device="cpu"),
           rt.scxmat(-2.0, rt.transpose(rt.scpmat(1.25, at, device="cpu"),
                                        device="cpu"), device="cpu"))
 
@@ -107,9 +90,10 @@ def test_chain_multiply_kernel(kernel):
     """Each multiply kernel inside a chain is exact in float64 (the JAX
     chain's "mxu" kernel on the same product)."""
     rng = np.random.default_rng(6)
-    aj, at = _rand(rng, 40, 30, 0.2)
-    bj, bt = _rand(rng, 30, 25, 0.2)
-    _same(chain(at).multiply(bt).run(multiply_kernel=kernel, device="cpu"),
+    aj, at = C.pair(C.rand_density(rng, 40, 30, 0.2))
+    bj, bt = C.pair(C.rand_density(rng, 30, 25, 0.2))
+    C.same_sprs(chain(at).multiply(bt).run(multiply_kernel=kernel,
+                                           device="cpu"),
           jchain(aj).multiply(bj).run(multiply_kernel="mxu"))
 
 
@@ -120,17 +104,17 @@ def test_chain_auto_kernel_and_leaf_only(monkeypatch):
     import rsparse_tpu_torch.ops.spgemm_general as sg
 
     rng = np.random.default_rng(7)
-    _, at = _rand(rng, 10, 10, 0.3)
+    _, at = C.pair(C.rand_density(rng, 10, 10, 0.3))
     e = chain(at).multiply(at)
     calls = []
     real = sg.spgemm_general_fn
     monkeypatch.setattr(sg, "spgemm_general_fn",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     want = e.run(multiply_kernel="esc", device="cpu")
-    _same(e.run(device="cpu"), want)
+    C.same_sprs(e.run(device="cpu"), want)
     assert calls == []
-    _same(e.run(multiply_kernel="mxu", device="cpu"), want)
+    C.same_sprs(e.run(multiply_kernel="mxu", device="cpu"), want)
     assert calls == [1]
-    _close(chain(at).run(device="cpu").x, at.x[: at.nnz()])
+    C.close(chain(at).run(device="cpu").x, at.x[: at.nnz()])
     with pytest.raises(ValueError, match="multiply_kernel"):
         e.values_fn(multiply_kernel="onehot", device="cpu")

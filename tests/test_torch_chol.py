@@ -28,70 +28,55 @@ import rsparse_tpu_torch.factor.frontal as fr_torch  # noqa: E402
 # the modules (each package's `factor` exports a function of that name)
 cd_jax = importlib.import_module("rsparse_tpu.factor.chol_device")
 cd_torch = importlib.import_module("rsparse_tpu_torch.factor.chol_device")
-from rsparse_tpu_torch.convert import sprs_from_fields, symb_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 
 
-def _laplacian(g):
-    from bench import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(g)
-    return rs.Sprs(len(x), n, n, p, i, x)
-
-
-def _both_chol(aj, order):
+def _jax_chol(aj, order):
+    """The JAX package's analysis (its fields before the factorization, and
+    itself after) and factor."""
     sj = rs.schol(aj, order)
-    at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-    st = symb_from_fields(pinv=sj.pinv, parent=sj.parent, cp=sj.cp,
-                          lnz=sj.lnz, unz=sj.unz)
-    nj = rs.chol(aj, sj)
-    nt = rt.chol(at, st, device="cpu")
+    before = C.symb_fields(sj)
+    return before, sj, rs.chol(aj, sj)
+
+
+def _both_chol(case, order, extra=()):
+    """Both packages' chol of a case under the JAX package's analysis;
+    `extra` names the module constants a test patched."""
+    before, sj, nj = C.jax_answer(_jax_chol, case, order, extra=extra)
+    st = C.symb(before)
+    nt = rt.chol(C.port(case), st, device="cpu")
     return (sj, nj), (st, nt)
-
-
-def _assert_same_l(nj, nt):
-    nz = nj.l.nnz()
-    assert nt.l.nnz() == nz
-    np.testing.assert_array_equal(nj.l.p, nt.l.p)
-    np.testing.assert_array_equal(nj.l.i[:nz], nt.l.i[:nz])
-    xj = np.asarray(nj.l.x)[:nz]
-    xt = nt.l.x[:nz]
-    assert np.abs(xj - xt).max() <= 1e-10 * max(1.0, np.abs(xj).max())
-
-
-def _level(monkeypatch):
-    monkeypatch.setattr(rs.config, "mf_min_n", 10**9)
-    monkeypatch.setattr(rt.config, "mf_min_n", 10**9)
 
 
 def test_level_path(monkeypatch):
     """Few levels: the level phase alone, no tail."""
-    _level(monkeypatch)
-    (sj, nj), (st, nt) = _both_chol(_laplacian(7), 0)
+    C.mf(monkeypatch, 10**9)
+    (sj, nj), (st, nt) = _both_chol("lap8", 0)
     assert st._chol_route == "device_level" and st.plan.tail is None
-    _assert_same_l(nj, nt)
+    C.same_sprs(nt.l, nj.l, 1e-10)
 
 
 def test_level_path_dense_tail_cut_zero(monkeypatch):
     """Natural order on a 12 x 12 grid below mf_min_n: a deep level
     structure on a small system factors entirely in the dense tail."""
-    _level(monkeypatch)
-    (sj, nj), (st, nt) = _both_chol(_laplacian(12), -1)
+    C.mf(monkeypatch, 10**9)
+    (sj, nj), (st, nt) = _both_chol("lap12", -1)
     assert st._chol_route == "device_level" and st.plan.tail.cut == 0
-    _assert_same_l(nj, nt)
+    C.same_sprs(nt.l, nj.l, 1e-10)
 
 
 def test_level_path_swept_leading_block(monkeypatch):
     """A tail after a level phase whose leading block L_NN is too large to
     densify: W = L_NN^{-1} C(N, T) is one SpTRSV sweep."""
-    _level(monkeypatch)
+    C.mf(monkeypatch, 10**9)
     for m in (cd_jax, cd_torch):
         monkeypatch.setattr(m._choose_cut, "__defaults__", (4, 64))
         monkeypatch.setattr(m, "DENSE_NN_MAX", 32)
-    (sj, nj), (st, nt) = _both_chol(_laplacian(16), 0)
+    (sj, nj), (st, nt) = _both_chol("lap16", 0, extra="swept")
     tail = st.plan.tail
     assert tail is not None and tail.cut > 32 and tail.tri is not None
     assert len(st.plan.levels) > 0
-    _assert_same_l(nj, nt)
+    C.same_sprs(nt.l, nj.l, 1e-10)
 
 
 def _same_plan(pj, pt):
@@ -116,38 +101,37 @@ def _same_plan(pj, pt):
             assert (pj.tail.cut, pj.tail.d) == (pt.tail.cut, pt.tail.d)
 
 
-@pytest.mark.parametrize("g,order,recurse", [(20, 0, None), (24, 1, 150)])
-def test_mf_path(monkeypatch, g, order, recurse):
+@pytest.mark.parametrize("case,order,recurse", [("lap12", 0, None),
+                                                ("lap24", 1, 150)])
+def test_mf_path(monkeypatch, case, order, recurse):
     """The multifrontal path (and, with RECURSE_MIN patched down, its
     recursive skeleton): the same plan and factor as the JAX package."""
-    monkeypatch.setattr(rs.config, "mf_min_n", 100)
-    monkeypatch.setattr(rt.config, "mf_min_n", 100)
+    C.mf(monkeypatch)
     if recurse:
         monkeypatch.setattr(fr_jax, "RECURSE_MIN", recurse)
         monkeypatch.setattr(fr_torch, "RECURSE_MIN", recurse)
-    (sj, nj), (st, nt) = _both_chol(_laplacian(g), order)
+    (sj, nj), (st, nt) = _both_chol(case, order, extra=recurse)
     assert st._chol_route == "device_mf"
     if recurse:
         assert isinstance(st._mf_plan.skel_plan, fr_torch.MFPlan)
     _same_plan(sj._mf_plan, st._mf_plan)
-    _assert_same_l(nj, nt)
+    C.same_sprs(nt.l, nj.l, 1e-10)
     assert "_cache_tree" in st._mf_plan.__dict__
 
 
-def _negated_diag(a, col):
-    a = rs.Sprs(a.nnz(), a.m, a.n, a.p.copy(), a.i.copy(), a.x.copy())
-    pos = int(a.p[col]) + int(np.nonzero(a.i[a.p[col]: a.p[col + 1]] == col)[0][0])
-    a.x[pos] = -50.0
-    return a
+def _negated_diag(case, col):
+    """A case with its diagonal entry (col, col) set to -50, as a dense
+    array."""
+    d = C.dense(case)
+    d[col, col] = -50.0
+    return d
 
 
 @pytest.mark.parametrize("route,mf_min_n", [("device_level", 10**9),
                                             ("device_mf", 100)])
 def test_not_positive_definite(monkeypatch, route, mf_min_n):
-    monkeypatch.setattr(rs.config, "mf_min_n", mf_min_n)
-    monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
-    aj = _negated_diag(_laplacian(16), 3)
-    at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
+    C.mf(monkeypatch, mf_min_n)
+    aj, at = C.pair(_negated_diag("lap12", 3))
     with pytest.raises(rs.NotPositiveDefiniteError):
         rs.chol(aj, rs.schol(aj, 0))
     st = rt.schol(at, 0)
@@ -161,9 +145,8 @@ def test_not_positive_definite(monkeypatch, route, mf_min_n):
 
 
 def test_backend_host_matches(monkeypatch):
-    monkeypatch.setattr(rs.config, "backend", "host")
-    monkeypatch.setattr(rt.config, "backend", "host")
-    (sj, nj), (st, nt) = _both_chol(_laplacian(9), 0)
+    C.host(monkeypatch)
+    (sj, nj), (st, nt) = _both_chol("lap8", 0)
     assert st._chol_route == "host"
     assert isinstance(nt.l.x, np.ndarray) and nt.l.x.dtype == np.float64
     nz = nj.l.nnz()

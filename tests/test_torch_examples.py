@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import rsparse_tpu as rs
-from bench import laplacian_5pt
+import torch_cases as C
 from rsparse_tpu.config import config as jconfig
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -77,16 +77,6 @@ def host_backend():
     jconfig.backend = old
 
 
-def _rel(got, ref) -> float:
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
-    return float(np.abs(got - ref).max() / max(1.0, np.abs(ref).max()))
-
-
-def _lap(g: int):
-    n, p, i, x = laplacian_5pt(g)
-    return rs.Sprs(len(x), n, n, p, i, x)
-
-
 def test_basic_example(tmp_path, host_backend):
     out = _run("basic.py", "--device", "cpu", "--save",
                str(tmp_path / "basic.npz"))
@@ -103,7 +93,7 @@ def test_basic_example(tmp_path, host_backend):
     src = open(os.path.join(ROOT, "examples", "basic.py")).read()
     dense = eval(re.search(r"dense = (\[.*?\n\])", src, re.S).group(1))
     b = eval(re.search(r"b_vec = (\[.*?\])", src).group(1))
-    want = np.asarray(rs.lusol(rs.Sprs.new_from_vec(dense), list(b), 1, 1e-6))
+    want = C.jax_answer("lusol", np.array(dense), list(b), 1, 1e-6)
     assert np.abs(got["x"] - want).max() <= 1e-12
     printed = eval(out.split("\nX\n")[1].splitlines()[0])
     assert printed == [float(v) for v in got["x"]]
@@ -115,17 +105,17 @@ def test_serving_example(tmp_path, host_backend):
     out = _run("serving.py", "--device", "cpu", "--grid", str(SERVE_GRID),
                "--save", str(tmp_path / "serving.npz"))
     got = np.load(tmp_path / "serving.npz")
-    a = _lap(SERVE_GRID)
-    n, nz = a.n, a.nnz()
+    lap = f"lap{SERVE_GRID}"
+    n, _, p, i, _ = C.fields(lap)
     Bm = got["Bm"]
     for key, col in (("x1", 0), ("x2", 1)):
-        want = np.asarray(rs.cholsol(a, list(Bm[:, col]), 1))
-        assert _rel(got[key], want) <= 1e-9, key
-    want = np.asarray(rs.cholsol_multi(a, Bm, 1))
-    assert _rel(got["Xm"], want) <= 1e-9
+        want = C.jax_answer("cholsol", lap, list(Bm[:, col]), 1)
+        assert C.rel(got[key], want) <= 1e-9, key
+    want = C.jax_answer("cholsol_multi", lap, Bm, 1)
+    assert C.rel(got["Xm"], want) <= 1e-9
     for k, (ax, bk) in enumerate(zip(got["AxK"], got["BK"])):
-        ak = rs.Sprs(nz, n, n, a.p, a.i[:nz], ax)
-        assert _rel(got["XK"][k], rs.cholsol(ak, list(bk), 1)) <= 1e-9, k
+        want = C.jax_answer("cholsol", (n, n, p, i, ax), list(bk), 1)
+        assert C.rel(got["XK"][k], want) <= 1e-9, k
     resids = [float(v) for line in out.splitlines() if "residual" in line
               for v in re.findall(r"\d\.\d+e[+-]\d+", line)]
     assert len(resids) == 7 and max(resids) <= 1e-9, out
@@ -143,14 +133,14 @@ def test_distributed_example_two_gloo_ranks(tmp_path, host_backend):
         assert rc == 0, f"rank {r} exited {rc}\n{err[-4000:]}"
     assert "model=2" in done[0][1]
     got = np.load(save)
-    a = _lap(24)
+    a = C.jax("lap24")
     b = got["b"]
     r = np.asarray(rs.gaxpy(a, list(b), [0.0] * a.n))
-    assert _rel(got["r"], r) <= 1e-12
-    want = np.asarray(rs.cholsol(a, list(b), 0))
-    assert _rel(got["x1"], want) <= 1e-9
-    assert _rel(got["x2"], want) <= 1e-9
-    assert _rel(got["want"], want) <= 1e-9
+    assert C.rel(got["r"], r) <= 1e-12
+    want = C.jax_answer("cholsol", "lap24", list(b), 0)
+    assert C.rel(got["x1"], want) <= 1e-9
+    assert C.rel(got["x2"], want) <= 1e-9
+    assert C.rel(got["want"], want) <= 1e-9
     assert int(got["nnz_c"]) == rs.multiply(a, a).nnz()
     assert float(got["refine_residual"]) <= 1e-8
 

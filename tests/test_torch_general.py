@@ -27,8 +27,7 @@ from rsparse_tpu.ops.spmv_general import (  # noqa: E402
     spmv_general_fn as j_spmv_fn)
 
 import rsparse_tpu_torch as rt  # noqa: E402
-from bench import rand_csc  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.ops.device import spmv_csc  # noqa: E402
 from rsparse_tpu_torch.ops.spgemm_general import (  # noqa: E402
     mxu_spgemm_plan, spgemm_general, spgemm_general_fn)
@@ -37,30 +36,12 @@ from rsparse_tpu_torch.ops.spmv_general import (  # noqa: E402
 
 
 def _pair(m, n, nnz, seed, ones=False):
-    p, i, x = rand_csc(m, n, nnz, seed)
-    if ones:
-        x = np.ones_like(x)
-    return rs.Sprs(len(x), m, n, p, i, x), sprs_from_fields(m, n, p, i, x)
+    m, n, p, i, x = C.rand_pattern(m, n, nnz, seed)
+    return C.pair((m, n, p, i, np.ones_like(x) if ones else x))
 
 
-def _dense_pair(rng, m, n, dens):
-    d = (rng.random((m, n)) < dens) * rng.standard_normal((m, n))
-    aj = rs.Sprs.new_from_vec(d.tolist())
-    return aj, sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-
-
-def _close(got, want, f64: bool):
-    got = np.asarray(got, np.float64)
-    want = np.asarray(want, np.float64)
-    assert got.shape == want.shape
-    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
-    assert np.abs(got - want).max(initial=0.0) <= (1e-12 if f64 else 1e-5) * scale
-
-
-def _same_pattern(ct, cj):
-    assert (ct.m, ct.n) == (cj.m, cj.n)
-    assert np.array_equal(ct.p, cj.p)
-    assert np.array_equal(ct.i[: ct.nnz()], cj.i[: cj.nnz()])
+def _tol(f64: bool) -> float:
+    return 1e-12 if f64 else 1e-5
 
 
 # -- CSCDevice, to_device / from_device, spmv_csc ---------------------------
@@ -107,13 +88,13 @@ def test_spmv_csc_and_its_gradients(shape):
     xt = torch.as_tensor(x).requires_grad_()
     yt = torch.as_tensor(y).requires_grad_()
     r = spmv_csc(rt.CSCDevice(d.p, d.i, ax, d.m, d.n), xt, yt)
-    _close(r.detach(), rj, True)
-    _close(spmv_csc(d, torch.as_tensor(x)), np.asarray(jdev.spmv_csc(
-        dj, jnp.asarray(x))), True)
+    C.close(r.detach(), rj, _tol(True))
+    C.close(spmv_csc(d, torch.as_tensor(x)), np.asarray(jdev.spmv_csc(
+        dj, jnp.asarray(x))), _tol(True))
     (r * torch.as_tensor(w)).sum().backward()
-    _close(ax.grad, gax, True)
-    _close(xt.grad, gx, True)
-    _close(yt.grad, gy, True)
+    C.close(ax.grad, gax, _tol(True))
+    C.close(xt.grad, gx, _tol(True))
+    C.close(yt.grad, gy, _tol(True))
 
 
 # -- spmv_general -----------------------------------------------------------
@@ -140,7 +121,7 @@ def test_spmv_general_float32(m, n, nnz, seed):
     x = np.random.default_rng(seed).standard_normal(n)
     got = spmv_general(at, x, device="cpu")
     assert tuple(got.shape) == (m,) and got.dtype == torch.float32
-    _close(got, j_spmv(aj, x), False)
+    C.close(got, j_spmv(aj, x), _tol(False))
 
 
 @pytest.mark.parametrize("precision", ["highest", "high"])
@@ -152,7 +133,7 @@ def test_spmv_general_float64_plan(precision):
     got = spmv_general_fn(pt, precision)(torch.as_tensor(pt.vals),
                                          torch.as_tensor(x))
     assert got.dtype == torch.float64
-    _close(got, want, True)
+    C.close(got, want, _tol(True))
     assert pt.vals.dtype == np.float64 and pt.perm.shape == (at.nnz(),)
 
 
@@ -170,7 +151,7 @@ def test_spmv_value_refresh_via_perm():
     vt[pt.perm] = new.astype(pt.vals.dtype)
     got = spmv_general_fn(pt)(torch.as_tensor(vt.reshape(pt.vals.shape)),
                               torch.as_tensor(x, dtype=torch.float32))
-    _close(got, want, False)
+    C.close(got, want, _tol(False))
 
 
 def test_spmv_general_rejects_unknown_precision():
@@ -190,13 +171,13 @@ def test_spmv_general_rejects_unknown_precision():
 ])
 def test_spgemm_matches_jax(m, k, n, da, db):
     rng = np.random.default_rng(m * 1000 + n)
-    aj, at = _dense_pair(rng, m, k, da)
-    bj, bt = _dense_pair(rng, k, n, db)
+    aj, at = C.pair(C.rand_density(rng, m, k, da))
+    bj, bt = C.pair(C.rand_density(rng, k, n, db))
     cj = j_spgemm(aj, bj, dtype="float64")
     ct = spgemm_general(at, bt, dtype="float64", device="cpu")
-    _same_pattern(ct, cj)
-    _close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], True)
-    _same_pattern(ct, rt.multiply(at, bt, device="cpu"))
+    C.same_sprs(ct, cj, values=False)
+    C.close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], _tol(True))
+    C.same_sprs(ct, rt.multiply(at, bt, device="cpu"), values=False)
 
 
 def test_spgemm_empty_product():
@@ -204,7 +185,7 @@ def test_spgemm_empty_product():
     ct = spgemm_general(rt.Sprs.zeros(5, 6, 1), rt.Sprs.zeros(6, 4, 1),
                         dtype="float64", device="cpu")
     assert ct.nnz() == cj.nnz() == 0 and (ct.m, ct.n) == (5, 4)
-    _same_pattern(ct, cj)
+    C.same_sprs(ct, cj, values=False)
 
 
 def test_spgemm_subtable_crossing():
@@ -219,19 +200,19 @@ def test_spgemm_subtable_crossing():
     p = np.arange(n + 1, dtype=np.int64)
     xa = np.empty(n)
     xa[perm] = va
-    aj, at = (rs.Sprs(n, n, n, p, ar, xa), sprs_from_fields(n, n, p, ar, xa))
-    bj, bt = (rs.Sprs(n, n, n, p, ab, vb), sprs_from_fields(n, n, p, ab, vb))
+    aj, at = C.pair((n, n, p, ar, xa))
+    bj, bt = C.pair((n, n, p, ab, vb))
     cj = j_spgemm(aj, bj, dtype="float64")
     ct = spgemm_general(at, bt, dtype="float64", device="cpu")
-    _same_pattern(ct, cj)
-    _close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], True)
+    C.same_sprs(ct, cj, values=False)
+    C.close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], _tol(True))
 
 
 def test_spgemm_value_refresh_through_run():
     """One plan, fresh values through f.run(ax, bx, *f.consts)."""
     rng = np.random.default_rng(3)
-    aj, at = _dense_pair(rng, 48, 48, 0.1)
-    bj, bt = _dense_pair(rng, 48, 48, 0.1)
+    aj, at = C.pair(C.rand_density(rng, 48, 48, 0.1))
+    bj, bt = C.pair(C.rand_density(rng, 48, 48, 0.1))
     fj = j_spgemm_fn(j_spgemm_plan(aj, bj), "float64")
     pt = mxu_spgemm_plan(at, bt)
     ft = spgemm_general_fn(pt, "float64", device="cpu")
@@ -240,18 +221,18 @@ def test_spgemm_value_refresh_through_run():
         ax, bx = rng.standard_normal(at.nnz()), rng.standard_normal(bt.nnz())
         want = fj.run(jnp.asarray(ax), jnp.asarray(bx), *fj.consts)
         got = ft.run(torch.as_tensor(ax), torch.as_tensor(bx), *ft.consts)
-        _close(got, want, True)
-        _close(ft(torch.as_tensor(ax), torch.as_tensor(bx)), want, True)
+        C.close(got, want, _tol(True))
+        C.close(ft(torch.as_tensor(ax), torch.as_tensor(bx)), want, _tol(True))
 
 
 def test_spgemm_float32():
     rng = np.random.default_rng(11)
-    aj, at = _dense_pair(rng, 60, 60, 0.1)
-    bj, bt = _dense_pair(rng, 60, 60, 0.1)
+    aj, at = C.pair(C.rand_density(rng, 60, 60, 0.1))
+    bj, bt = C.pair(C.rand_density(rng, 60, 60, 0.1))
     cj = j_spgemm(aj, bj)  # float32 default
     ct = spgemm_general(at, bt, device="cpu")
-    _same_pattern(ct, cj)
-    _close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], False)
+    C.same_sprs(ct, cj, values=False)
+    C.close(ct.x[: ct.nnz()], cj.x[: cj.nnz()], _tol(False))
     f = spgemm_general_fn(mxu_spgemm_plan(at, bt), device="cpu")
     ax = torch.as_tensor(at.x[: at.nnz()])
     bx = torch.as_tensor(bt.x[: bt.nnz()])

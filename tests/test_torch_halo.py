@@ -27,6 +27,7 @@ from rsparse_tpu.parallel import halo as JH  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
 from rsparse_tpu_torch.parallel import halo as H  # noqa: E402
 from rsparse_tpu_torch.symbolic import native  # noqa: E402
+import torch_cases as C  # noqa: E402
 import torch_dist_ranks as R  # noqa: E402
 
 DS = (2, 4)
@@ -44,29 +45,19 @@ def ranks(tmp_path_factory):
         p.close()
 
 
-def _j(f):
-    m, n, p, i, x = f
-    return rs.Sprs(len(x), m, n, p, i, x)
-
-
-def _rel(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
-
-
 @functools.lru_cache(maxsize=None)
 def _tris(name):
     """(JAX L, JAX U, port L, port U) of a test case: "chol", the Cholesky
     factor of a 12 x 12 Laplacian (AMD) and its transpose; "band", the
     banded lower triangle with cross-shard reach."""
     if name == "chol":
-        f = R.lap(12)
-        jl = rs.chol(_j(f), rs.schol(_j(f), 0)).l
-        tl = rt.chol(rt.sprs_from_fields(*f), rt.schol(
-            rt.sprs_from_fields(*f), 0), device="cpu").l
+        f = C.laplacian(12)
+        jl = rs.chol(C.jax(f), rs.schol(C.jax(f), 0)).l
+        tl = rt.chol(C.port(f), rt.schol(
+            C.port(f), 0), device="cpu").l
     else:
         f = R.banded_lower(96, 3)
-        jl, tl = _j(f), rt.sprs_from_fields(*f)
+        jl, tl = C.jax(f), C.port(f)
     jl.x = np.asarray(jl.x)
     return jl, rs.transpose(jl), tl, rt.transpose(tl, device="cpu")
 
@@ -79,9 +70,9 @@ def test_names():
 @pytest.mark.parametrize("case", ["lap", "gen"])
 @pytest.mark.parametrize("D", DS)
 def test_partition_rows_fields(D, case):
-    f = R.lap(16) if case == "lap" else R.general(90, 90, 4, 400)
-    jp = JH.partition_rows(_j(f), D)
-    tp = H.partition_rows(rt.sprs_from_fields(*f), D)
+    f = C.laplacian(16) if case == "lap" else R.general(90, 90, 4, 400)
+    jp = JH.partition_rows(C.jax(f), D)
+    tp = H.partition_rows(C.port(f), D)
     for k in ("m", "n", "d", "nb", "hops", "chunk", "vals", "rows", "cols",
               "perm"):
         np.testing.assert_array_equal(getattr(tp, k), getattr(jp, k), k)
@@ -114,7 +105,7 @@ def test_halo_tri_plan_fields(D, case, kind):
 @pytest.mark.parametrize("D", DS)
 def test_dist_gaxpy_halo(ranks, D, case):
     got = ranks["halo", D].rank0(f"gaxpy_{case}")
-    assert _rel(got, ranks["jax_halo", D].rank0(f"gaxpy_{case}")) <= 1e-12
+    assert C.rel(got, ranks["jax_halo", D].rank0(f"gaxpy_{case}")) <= 1e-12
 
 
 @pytest.mark.parametrize("case", ["chol", "band"])
@@ -128,7 +119,7 @@ def test_dist_tri_solve_halo(ranks, D, case):
         got = port.rank0(f"tri_{case}{kind}_True")
         np.testing.assert_array_equal(
             got, port.rank0(f"tri_{case}{kind}_False"))
-        assert _rel(got, ref.rank0(f"tri_{case}{kind}")) <= 1e-12, kind
+        assert C.rel(got, ref.rank0(f"tri_{case}{kind}")) <= 1e-12, kind
 
 
 @pytest.mark.parametrize("D", DS)
@@ -136,7 +127,7 @@ def test_replicated_route_without_a_halo_plan(ranks, D):
     """With no halo plan the solve takes the replicated route (the JAX
     package's `dist_tri_solve`), and the route counter says so."""
     port = ranks["halo", D]
-    assert _rel(port.rank0("tri_replicated"),
+    assert C.rel(port.rank0("tri_replicated"),
                 ranks["jax_halo", D].rank0("tri_replicated")) <= 1e-12
     np.testing.assert_array_equal(port.rank0("routes"), [0, 1])
 
@@ -152,7 +143,7 @@ def test_dist_lusol(ranks, D):
                     ("lusol_mf", R.crossing(150, 0))):
         got, n = port.rank0(name), f[1]
         assert np.abs(got - ref.rank0(name)).max() < 1e-8, name
-        assert np.abs(_j(f).to_dense_np() @ got - b[:n]).max() < 1e-8, name
+        assert np.abs(C.jax(f).to_dense_np() @ got - b[:n]).max() < 1e-8, name
 
 
 @pytest.mark.parametrize("branch", ["ls", "mn"])
@@ -160,7 +151,7 @@ def test_dist_lusol(ranks, D):
 def test_dist_qrsol(ranks, D, branch):
     """CSNE with 2 refinement steps, both branches, against the JAX
     package and the dense least-squares / minimum-norm answer (1e-8)."""
-    d = _j(R.general(80, 50, 8, 300)).to_dense_np()
+    d = C.jax(R.general(80, 50, 8, 300)).to_dense_np()
     bq = np.random.default_rng(2).standard_normal(80)
     if branch == "mn":
         d, bq = d.T, bq[:50]

@@ -15,27 +15,7 @@ torch = pytest.importorskip("torch")
 
 import rsparse_tpu as rs  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields, symb_from_fields  # noqa: E402
-
-
-def _unsym(g, seed):
-    """Nonsymmetric diagonally dominant matrix on the g x g 5-point pattern."""
-    from bench import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(g)
-    rng = np.random.default_rng(seed)
-    x = -(1.0 + 0.3 * rng.standard_normal(len(x)))
-    cols = np.repeat(np.arange(n), np.diff(p))
-    d = np.zeros((n, n))
-    d[i, cols] = x
-    np.fill_diagonal(d, 0.0)
-    np.fill_diagonal(d, np.maximum(np.abs(d).sum(0), np.abs(d).sum(1)) + 1.0)
-    return d
-
-
-def _pair(d):
-    aj = rs.Sprs.new_from_vec(d)
-    return aj, sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
+import torch_cases as C  # noqa: E402
 
 
 def test_port_imports_no_jax():
@@ -100,7 +80,7 @@ def test_engine_source_is_the_ports_own_copy():
 
 @pytest.mark.parametrize("order", [-1, 0, 1, 2])
 def test_sqr_fields_equal(order):
-    aj, at = _pair(_unsym(9, order + 3))
+    aj, at = C.pair("unsym12")
     sj = rs.sqr(aj, order, False)
     st = rt.sqr(at, order, False)
     assert (sj.q is None) == (st.q is None)
@@ -110,11 +90,7 @@ def test_sqr_fields_equal(order):
 
 
 def test_schol_fields_equal():
-    from bench import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(8)
-    aj = rs.Sprs(len(x), n, n, p, i, x)
-    at = rt.Sprs(len(x), n, n, p, i, x)
+    aj, at = C.pair("lap8")
     sj, st = rs.schol(aj, 0), rt.schol(at, 0)
     for f in ("pinv", "parent", "cp"):
         np.testing.assert_array_equal(getattr(sj, f), getattr(st, f))
@@ -126,14 +102,14 @@ def test_tri_plan_arrays_equal(kind):
     """Same L/U (from the host engine) -> identical level schedules."""
     from rsparse_tpu.solve import tri_plan as tri_plan_jax
 
-    aj, at = _pair(_unsym(8, 11))
+    aj, at = C.pair("unsym6")
     sj = rs.sqr(aj, 1, False)
     nz = aj.nnz()
     Lp, Li, Lx, Up, Ui, Ux, _ = rs.symbolic.native.lu_numeric(
         aj.n, aj.p, aj.i[:nz], aj.x[:nz], sj.q, 1e-6, sj.lnz, sj.unz)
     p_, i_, x_ = (Lp, Li, Lx) if kind in (0, 2) else (Up, Ui, Ux)
     tj = tri_plan_jax(rs.Sprs(len(x_), aj.n, aj.n, p_, i_, x_), kind)
-    tt = rt.tri_plan(sprs_from_fields(aj.n, aj.n, p_, i_, x_), kind)
+    tt = rt.tri_plan(C.port((aj.n, aj.n, p_, i_, x_)), kind)
     for f in ("n", "nlev", "emax", "wmax"):
         assert getattr(tj, f) == getattr(tt, f), f
     for f in ("ent_pos", "ent_row", "ent_col", "ent_slot", "ent_off",
@@ -142,9 +118,9 @@ def test_tri_plan_arrays_equal(kind):
 
 
 def test_convert_copies_fields():
-    aj, at = _pair(_unsym(4, 1))
+    aj, at = C.pair("unsym6")
     sj = rs.sqr(aj, 1, False)
-    st = symb_from_fields(q=sj.q, lnz=sj.lnz, unz=sj.unz)
+    st = C.symb(sj)
     np.testing.assert_array_equal(st.q, sj.q)
     st.q[0] = -5  # the port owns its copy
     assert sj.q[0] != -5
@@ -154,7 +130,7 @@ def test_convert_copies_fields():
 
 def test_sprs_io_roundtrip(tmp_path):
     """The port's .sprs save is byte-identical to the JAX package's."""
-    aj, at = _pair(_unsym(3, 2))
+    aj, at = C.pair("unsym6")
     aj.save(str(tmp_path / "j.sprs"))
     at.save(str(tmp_path / "t.sprs"))
     assert (tmp_path / "j.sprs").read_bytes() == (tmp_path / "t.sprs").read_bytes()

@@ -25,31 +25,14 @@ from rsparse_tpu_torch.errors import NotPositiveDefiniteError  # noqa: E402
 from rsparse_tpu_torch.factor import front_tree, frontal  # noqa: E402
 from rsparse_tpu_torch.symbolic import _symperm_host, native  # noqa: E402
 
+import torch_cases as C  # noqa: E402
 from benchmark.generators import hpcg27  # noqa: E402
 from benchmark.reference import planes  # noqa: E402
 
 
-def _matrix(g, values="hpcg", seed=0):
-    """(n, p, i, x) of the 27-point pattern on a g^3 box: HPCG's values, or
-    seeded random symmetric ones made SPD by a dominant diagonal."""
-    n, p, i, x = hpcg27.make({"grid": g}, None)
-    if values == "random":
-        cols = np.repeat(np.arange(n), np.diff(p))
-        key = np.minimum(i, cols) * n + np.maximum(i, cols)
-        _, pair = np.unique(key, return_inverse=True)
-        rng = np.random.default_rng(seed)
-        x = -rng.uniform(0.5, 1.5, pair.max() + 1)[pair]
-        off = i != cols
-        rowsum = np.bincount(cols[off], np.abs(x[off]), minlength=n)
-        x[~off] = rowsum[cols[~off]] + 0.25
-    return n, p, i, np.asarray(x, np.float64)
-
-
-def _dense(n, p, i, x):
-    A = np.zeros((n, n))
-    for j in range(n):
-        A[i[p[j]:p[j + 1]], j] = x[p[j]:p[j + 1]]
-    return A
+def _fields(g, values="hpcg", seed=0):
+    """(n, p, i, x) of `torch_cases.hpcg27`."""
+    return C.hpcg27(g, values, seed)[1:]
 
 
 def test_generator_is_hpcgs_stencil():
@@ -67,7 +50,7 @@ def test_generator_is_hpcgs_stencil():
                             if 0 <= z < g and 0 <= y < g and 0 <= xx < g:
                                 col = z * g * g + y * g + xx
                                 A[row, col] = 26.0 if col == row else -1.0
-    np.testing.assert_array_equal(_dense(n, p, i, x), A)
+    np.testing.assert_array_equal(C.dense((n, n, p, i, x)), A)
     for j in range(n):  # rows ascending in each column
         assert np.all(np.diff(i[p[j]:p[j + 1]]) > 0)
 
@@ -75,7 +58,7 @@ def test_generator_is_hpcgs_stencil():
 @pytest.mark.parametrize("values", ["hpcg", "random"])
 def test_cholsol_serve_matches_planes(values):
     g = 6
-    n, p, i, x = _matrix(g, values, seed=3)
+    n, p, i, x = _fields(g, values, seed=3)
     h = rt.cholsol_serve(rt.Sprs(len(x), n, n, p, i, x), 1, device="cpu")
     B = torch.as_tensor(np.random.default_rng(4).standard_normal((n, 8)))
     X = h(B)
@@ -98,7 +81,7 @@ def _wide_sym(monkeypatch, a):
 
 @pytest.mark.parametrize("values", ["hpcg", "random"])
 def test_wide_front_route_matches_host_engine(monkeypatch, values):
-    n, p, i, x = _matrix(8, values, seed=5)
+    n, p, i, x = _fields(8, values, seed=5)
     a = rt.Sprs(len(x), n, n, p, i, x)
     s = _wide_sym(monkeypatch, a)
     cols0 = frontal._chol_mf_values.cols
@@ -126,9 +109,9 @@ def test_wide_front_route_matches_host_engine(monkeypatch, values):
 def test_wide_front_route_solves(monkeypatch):
     """One analysis, the route's plan reused by the one-shot, batched-RHS
     and batched-values (K = 2) solves."""
-    n, p, i, x = _matrix(7, "random", seed=6)
+    n, p, i, x = _fields(7, "random", seed=6)
     a = rt.Sprs(len(x), n, n, p, i, x)
-    A = _dense(n, p, i, x)
+    A = C.dense((n, n, p, i, x))
     s = _wide_sym(monkeypatch, a)
     rng = np.random.default_rng(7)
     b = rng.standard_normal(n)
@@ -144,12 +127,12 @@ def test_wide_front_route_solves(monkeypatch):
     Xk = rt.cholsol_vals(a, Ax, Bk, 1, sym=s, device="cpu")
     assert s._vals_route == ("device_mf", 0)
     for k in range(2):
-        Ak = _dense(n, p, i, Ax[k])
+        Ak = C.dense((n, n, p, i, Ax[k]))
         assert np.abs(Xk[k] - np.linalg.solve(Ak, Bk[k])).max() < 1e-10
 
 
 def test_wide_front_route_not_positive_definite(monkeypatch):
-    n, p, i, x = _matrix(8)
+    n, p, i, x = _fields(8)
     x = x.copy()
     s = _wide_sym(monkeypatch, rt.Sprs(len(x), n, n, p, i, x))
     # negate the diagonal of the column eliminated last (the tree's root)
@@ -161,26 +144,28 @@ def test_wide_front_route_not_positive_definite(monkeypatch):
     assert isinstance(s._mf_plan.skel_plan, front_tree.FrontTree)
 
 
+def _jax_chol(aj):
+    """The JAX package's analysis (AMD; its fields) and its chol."""
+    import rsparse_tpu as rs
+
+    sj = rs.schol(aj, 1)
+    return C.symb_fields(sj), rs.chol(aj, sj)
+
+
 def test_wide_front_route_matches_jax_package(monkeypatch):
     """L of the wide-front route at grid 6 against the JAX package's chol
     of the same matrix under the same analysis (passed across with
     `convert`), as `test_torch_chol.py` holds the other routes. Grid 6,
     not 8: the JAX package compiles its factorization for each matrix
     (about 6 s here, 17 s at grid 8)."""
-    rs = pytest.importorskip("rsparse_tpu")
-    from rsparse_tpu_torch.convert import sprs_from_fields, symb_from_fields
-
-    n, p, i, x = _matrix(6, "random", seed=8)
-    aj = rs.Sprs(len(x), n, n, p, i, x)
-    sj = rs.schol(aj, 1)
-    at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-    st = symb_from_fields(pinv=sj.pinv, parent=sj.parent, cp=sj.cp,
-                          lnz=sj.lnz, unz=sj.unz)
+    pytest.importorskip("rsparse_tpu")
+    case = C.hpcg27(6, "random", seed=8)
+    before, nj = C.jax_answer(_jax_chol, case)
+    at, st = C.port(case), C.symb(before)
     monkeypatch.setattr(rt.config, "mf_min_n", 100)
     st._mf_plan = frontal.build_mf_plan(_symperm_host(at, st.pinv), st, SMAX)
     nt = rt.chol(at, st, device="cpu")
     assert isinstance(st._mf_plan.skel_plan, front_tree.FrontTree)
-    nj = rs.chol(aj, sj)
     nz = nj.l.nnz()
     assert nt.l.nnz() == nz
     np.testing.assert_array_equal(nj.l.p, nt.l.p)

@@ -13,8 +13,9 @@ the SpMM kernel at B = 1, spgemm_general, spmv_csc, ops.chain), the
 kernels' sanitize mode, and the distributed layer on a one-rank NCCL mesh
 (the halo and replicated sweeps, dist_cholsol_vals).
 
-This file imports neither jax nor the JAX package (only the numpy test
-matrix of bench.py), so it also runs on a machine with a card and no JAX:
+This file imports neither jax nor the JAX package (its inputs come from
+`torch_cases`, numpy and the port only), so it also runs on a machine
+with a card and no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 
@@ -29,40 +30,27 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from bench import laplacian_5pt, rand_csc  # noqa: E402  (numpy only)
 import rsparse_tpu_torch as rt  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402  (numpy and the port only)
 from rsparse_tpu_torch.ops import spmv as spmv_mod  # noqa: E402
 from rsparse_tpu_torch.ops.spmm_cuda import (  # noqa: E402
     spmm_csr, spmm_fn, spmm_plain, spmm_plan)
 from rsparse_tpu_torch.ops.sptrsv_cuda import (  # noqa: E402
     sptrsv_multi, sptrsv_plain_multi)
-from rsparse_tpu_torch.symbolic import native  # noqa: E402
 import snode_patterns  # noqa: E402  (numpy and the port only)
 
 
-def _tri(kind, g=12):
-    """L (kinds 0/2) or U (kinds 1/3) of the host engine's LU of a g x g
-    5-point Laplacian."""
-    n, p, i, x = laplacian_5pt(g)
-    a = sprs_from_fields(n, n, p, i, x)
-    s = rt.sqr(a, 1, False)
-    Lp, Li, Lx, Up, Ui, Ux, _ = native.lu_numeric(
-        n, a.p, a.i, a.x, s.q, 1e-6, s.lnz, s.unz)
-    return sprs_from_fields(n, n, *((Lp, Li, Lx) if kind in (0, 2)
-                                    else (Up, Ui, Ux)))
-
-
-def _rel(got, ref):
-    got, ref = got.double().cpu().numpy(), ref.double().cpu().numpy()
-    return np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+def _tri(kind, case="lap12"):
+    """L (kinds 0/2) or U (kinds 1/3) of the host engine's LU of a 5-point
+    Laplacian."""
+    return C.port(C.host_tri(case, kind))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-13)])
 @pytest.mark.parametrize("kind", [0, 1, 2, 3])
 def test_plain_sweep_vs_dense_solve(kind, dtype, tol):
-    t = _tri(kind, g=6)
+    t = _tri(kind, "lap8")
     D = t.to_dense_np()
     M = D if kind in (0, 1) else D.T
     B = np.random.default_rng(kind).standard_normal((t.n, 5))
@@ -70,7 +58,7 @@ def test_plain_sweep_vs_dense_solve(kind, dtype, tol):
                            torch.as_tensor(B, dtype=dtype),
                            rt.tri_plan(t, kind), kind)
     want = torch.as_tensor(np.linalg.solve(M, B))
-    assert _rel(X, want) < tol
+    assert C.rel(X, want) < tol
 
 
 _SWEEP_CASES: dict = {}
@@ -78,7 +66,7 @@ _SWEEP_CASES: dict = {}
 
 def _sweep_case(name, kind):
     """The triangle and its plan for kind: "dense", L or U of the port's
-    multifrontal LU of chip_smoke.make_matrix(24) (a dense skeleton block of
+    multifrontal LU of the case "unsym24" (a dense skeleton block of
     109 columns); "levels", the host engine's factor of `_tri` (no block);
     "large", chip_smoke.synthetic_triangle(70000, 96), whose n is too large
     for X's column in shared memory (the global-memory variant)."""
@@ -89,14 +77,14 @@ def _sweep_case(name, kind):
         if name == "dense":
             old, rt.config.mf_min_n = rt.config.mf_min_n, 100
             try:
-                a = chip_smoke.make_matrix(24, 0)
+                a = C.port("unsym24")
                 s = rt.sqr(a, 1, False)
                 nm = rt.lu(a, s, 1e-6, device="cpu")
                 assert s._lu_route == "device_mf"
             finally:
                 rt.config.mf_min_n = old
             t = nm.l if kind in (0, 2) else nm.u
-            t = sprs_from_fields(t.n, t.n, t.p, t.i, t.x)
+            t = C.port(t)
         elif name == "levels":
             t = _tri(kind)
         else:
@@ -141,7 +129,7 @@ def test_kernel_matches_plain_on_card(case, kind, dtype, tol, B):
     torch.cuda.synchronize()
     assert sptrsv_multi.launches == before + 1
     assert got.shape == X.shape and got.is_contiguous()
-    assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
+    assert C.rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
 
 
 @pytest.mark.gpu
@@ -171,10 +159,10 @@ def test_kernel_instances_match_plain_on_card(case, K, B, kind, dtype, tol):
     torch.cuda.synchronize()
     assert sptrsv_multi.launches == before + 1
     assert got.shape == X.shape and got.is_contiguous()
-    assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
+    assert C.rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
     for k in sorted({0, K // 2, K - 1}):
         one = sptrsv_multi(tx[k].contiguous(), X[k], plan, kind)
-        assert _rel(got[k], one) < tol
+        assert C.rel(got[k], one) < tol
 
 
 _SNODE: dict = {}
@@ -185,15 +173,7 @@ def _snode_case():
     5-point Laplacian in AMD order (n = 65,536), and its kind 0 and 2
     plans, whose sweeps at B >= 32 take the supernodal variant."""
     if not _SNODE:
-        from rsparse_tpu_torch.symbolic import _symperm_host
-
-        n, p, i, x = laplacian_5pt(256)
-        a = sprs_from_fields(n, n, p, i, x)
-        s = rt.schol(a, 1)
-        c = _symperm_host(a, s.pinv)
-        Lp, Li, Lx = native.chol_numeric(n, c.p, c.i[: c.nnz()],
-                                         c.x[: c.nnz()], s.parent, s.cp)
-        L = sprs_from_fields(n, n, Lp, Li, Lx)
+        L = snode_patterns.chol(C.port(C.laplacian(256)), 1)
         _SNODE.update(L=L, plans={k: rt.tri_plan(L, k) for k in (0, 2)})
     return _SNODE["L"], _SNODE["plans"]
 
@@ -222,7 +202,7 @@ def test_snode_kernel_chain_matches_plain_on_card(dtype, tol, B):
                               plans[2], 2)
     torch.cuda.synchronize()
     assert got.shape == X.shape and got.is_contiguous()
-    assert _rel(got, want) < tol
+    assert C.rel(got, want) < tol
 
 
 @pytest.mark.gpu
@@ -279,7 +259,7 @@ def test_snode_kernel_matches_plain_on_patterns_on_card(name, kind, B, dtype,
     torch.cuda.synchronize()
     for X, got in zip(Xs, gots):
         assert got.shape == X.shape and got.is_contiguous()
-        assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
+        assert C.rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < tol
 
 
 @pytest.mark.gpu
@@ -303,7 +283,7 @@ def test_snode_kernel_launches_on_two_streams_on_card():
         torch.cuda.synchronize()
         for X, got in zip(Xs, gots):
             want = sptrsv_plain_multi(tx, X, plan, kind)
-            assert _rel(got, want) < 1e-4
+            assert C.rel(got, want) < 1e-4
 
 
 @pytest.mark.gpu
@@ -330,7 +310,7 @@ def test_snode_prepare_makes_the_first_sweeps_work_on_card():
         got = sptrsv_multi(tx, X, plan, kind)
         assert ks["values"][2] is val
         torch.cuda.synchronize()
-        assert _rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < 1e-4
+        assert C.rel(got, sptrsv_plain_multi(tx, X, plan, kind)) < 1e-4
     for kind in (0, 1):  # fresh plans: the supernodal, the shared variant
         t, _ = _sweep_case("dense", kind)
         plan = rt.tri_plan(t, kind)
@@ -367,15 +347,14 @@ def test_serve_handle_on_card():
     """lusol_serve on the card answers with the kernel in its sweeps."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    n, p, i, x = laplacian_5pt(20)
-    a = sprs_from_fields(n, n, p, i, x)
-    B = np.random.default_rng(1).standard_normal((n, 64))
+    a = C.port("lap20")
+    B = np.random.default_rng(1).standard_normal((a.n, 64))
     before = sptrsv_multi.launches
     h = rt.lusol_serve(a, 1, 1e-6, device="cuda")
     X = h(B)
     assert X.device.type == "cuda" and sptrsv_multi.launches >= before + 4
     want = rt.lusol_serve(a, 1, 1e-6, device="cpu")(B)
-    assert _rel(X, want) < 1e-10
+    assert C.rel(X, want) < 1e-10
 
 
 @pytest.mark.gpu
@@ -406,9 +385,8 @@ def test_solvers_on_card(monkeypatch, solver, mf_min_n, route):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
-    n, p, i, x = laplacian_5pt(20)
-    a = sprs_from_fields(n, n, p, i, x)
-    B = np.random.default_rng(2).standard_normal((n, 3))
+    a = C.port("lap20")
+    B = np.random.default_rng(2).standard_normal((a.n, 3))
     out = {}
     for dev in ("cuda", "cpu"):
         if solver == "cholsol_serve":
@@ -435,12 +413,10 @@ def test_error_contracts_on_card(monkeypatch, mf_min_n):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
-    n, p, i, x = laplacian_5pt(20)
-    x = x.copy()
-    x[p[7] + int(np.nonzero(i[p[7]: p[8]] == 7)[0][0])] = -4.0
+    d = C.dense("lap20")
+    d[7, 7] = -4.0
     with pytest.raises(rt.NotPositiveDefiniteError):
-        rt.cholsol(sprs_from_fields(n, n, p, i, x), np.ones(n), 1,
-                   device="cuda")
+        rt.cholsol(C.port(d), np.ones(len(d)), 1, device="cuda")
     d = np.eye(6) * 3.0
     d[:, 2] = 0.0
     d[2, 4] = 1.0
@@ -448,29 +424,17 @@ def test_error_contracts_on_card(monkeypatch, mf_min_n):
         rt.lusol(rt.Sprs.new_from_vec(d), [1.0] * 6, 1, 1e-6, device="cuda")
 
 
-def _rand_sprs(m, n, nnz, seed):
-    return sprs_from_fields(m, n, *rand_csc(m, n, nnz, seed))
-
-
 def _banded(n, seed, far):
-    """A 5-point Laplacian (g = n**0.5) with `far` stray entries added off
-    its band, which a `max_diags=5` plan sends to the COO remainder."""
-    g = int(round(n ** 0.5))
-    n, p, i, x = laplacian_5pt(g)
-    d = sprs_from_fields(n, n, p, i, x).to_dense_np()
-    rng = np.random.default_rng(seed)
-    for _ in range(far):
-        d[rng.integers(n), rng.integers(n)] = rng.standard_normal()
-    return rt.Sprs.new_from_vec(d)
+    return C.port(C.laplacian_stray(n, seed, far))
 
 
 @pytest.mark.parametrize("B", [1, 8, 40, 128])
 def test_plain_spmm_vs_dense(B):
-    a = _rand_sprs(70, 50, 300, B)
+    a = C.port(C.rand_pattern(70, 50, 300, B))
     plan = spmm_plan(a)
     X = np.random.default_rng(B).standard_normal((50, B))
     R = spmm_plain(torch.as_tensor(a.x[: a.nnz()]), torch.as_tensor(X), plan)
-    assert _rel(R, torch.as_tensor(a.to_dense_np() @ X)) < 1e-13
+    assert C.rel(R, torch.as_tensor(a.to_dense_np() @ X)) < 1e-13
 
 
 @pytest.mark.parametrize("far", [0, 7])
@@ -480,7 +444,7 @@ def test_plain_dia_vs_dense(far):
     assert (plan.rem_vals is not None) == (far > 0)
     x = np.random.default_rng(far).standard_normal(a.n)
     r = spmv_mod.spmv_fn(plan)(torch.as_tensor(plan.dia), torch.as_tensor(x))
-    assert _rel(r, torch.as_tensor(a.to_dense_np() @ x)) < 1e-13
+    assert C.rel(r, torch.as_tensor(a.to_dense_np() @ x)) < 1e-13
 
 
 @pytest.mark.gpu
@@ -496,7 +460,7 @@ def test_spmm_kernel_matches_plain_on_card(shape, B, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     m, n, nnz = shape
-    a = _rand_sprs(m, n, nnz, B) if nnz else rt.Sprs.zeros(m, n, 0)
+    a = C.port(C.rand_pattern(m, n, nnz, B)) if nnz else rt.Sprs.zeros(m, n, 0)
     plan = spmm_plan(a)
     vals = torch.as_tensor(a.x[: a.nnz()], dtype=dtype, device="cuda")
     X = torch.as_tensor(np.random.default_rng(B).standard_normal((n, B)),
@@ -506,7 +470,7 @@ def test_spmm_kernel_matches_plain_on_card(shape, B, dtype, tol):
     torch.cuda.synchronize()
     assert spmm_csr.launches == before + 1
     assert tuple(got.shape) == (m, B) and got.dtype == dtype
-    assert _rel(got, spmm_plain(vals, X, plan)) < tol
+    assert C.rel(got, spmm_plain(vals, X, plan)) < tol
 
 
 @pytest.mark.gpu
@@ -521,7 +485,7 @@ def test_dia_kernel_matches_plain_on_card(far, dtype, tol):
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     a = _banded(1024, far, far)
     cases = [spmv_mod.dia_plan(a, max_diags=5, dtype=np_dt)]
-    wide = _rand_sprs(600, 600, 6000, far)
+    wide = C.port(C.rand_pattern(600, 600, 6000, far))
     cases.append(spmv_mod.dia_plan(wide, max_diags=10**9, dtype=np_dt))
     assert len(cases[1].offsets) > 256
     for mat, plan in ((a, cases[0]), (wide, cases[1])):
@@ -533,9 +497,9 @@ def test_dia_kernel_matches_plain_on_card(far, dtype, tol):
         full = spmv_mod.spmv_fn(plan)(dia, x)
         torch.cuda.synchronize()
         assert spmv_mod.dia_spmv.launches == before + 2
-        assert _rel(diag, spmv_mod.dia_spmv_plain(dia, x, plan)) < tol
+        assert C.rel(diag, spmv_mod.dia_spmv_plain(dia, x, plan)) < tol
         # with the remainder: against the whole CPU path on the same inputs
-        assert _rel(full, spmv_mod.spmv_fn(plan)(dia.cpu(), x.cpu())) < tol
+        assert C.rel(full, spmv_mod.spmv_fn(plan)(dia.cpu(), x.cpu())) < tol
 
 
 @pytest.mark.gpu
@@ -548,11 +512,11 @@ def test_public_ops_launch_on_card():
     before = spmm_csr.launches
     R = rt.gaxpy_multi(a, X, np.ones(a.m), device="cuda")
     assert spmm_csr.launches == before + 1 and R.device.type == "cuda"
-    assert _rel(R, torch.as_tensor(a.to_dense_np() @ X + 1.0)) < 1e-12
+    assert C.rel(R, torch.as_tensor(a.to_dense_np() @ X + 1.0)) < 1e-12
     before = spmv_mod.dia_spmv.launches
     r = spmv_mod.spmv(a, X[:, 0], device="cuda")
     assert spmv_mod.dia_spmv.launches == before + 1
-    assert _rel(r, torch.as_tensor(a.to_dense_np() @ X[:, 0])) < 1e-5
+    assert C.rel(r, torch.as_tensor(a.to_dense_np() @ X[:, 0])) < 1e-5
 
 
 @pytest.mark.gpu
@@ -568,8 +532,8 @@ def test_spmm_tiles_on_card(pattern, B, dtype, tol):
     the sparse shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    a = {"random": lambda: _rand_sprs(700, 500, 4000, B),
-         "empty_rows": lambda: _rand_sprs(900, 300, 600, B),
+    a = {"random": lambda: C.port(C.rand_pattern(700, 500, 4000, B)),
+         "empty_rows": lambda: C.port(C.rand_pattern(900, 300, 600, B)),
          "no_entries": lambda: rt.Sprs.zeros(64, 50, 0),
          "banded": lambda: _banded(400, 5, 0)}[pattern]()
     plan = spmm_plan(a)
@@ -587,7 +551,7 @@ def test_spmm_tiles_on_card(pattern, B, dtype, tol):
         torch.cuda.synchronize()
         assert spmm_csr.launches == before + 1
         assert tuple(got.shape) == (a.m, B) and got.dtype == dtype
-        assert _rel(got, want) < tol
+        assert C.rel(got, want) < tol
 
 
 def dia_case(m, n, offsets, dtype, seed):
@@ -636,7 +600,7 @@ def test_dia_kernel_cases_on_card(case, dtype, tol):
     torch.cuda.synchronize()
     assert spmv_mod.dia_spmv.launches == before + 1
     assert tuple(got.shape) == (m,)
-    assert _rel(got, spmv_mod.dia_spmv_plain(dia, xt, plan)) < tol
+    assert C.rel(got, spmv_mod.dia_spmv_plain(dia, xt, plan)) < tol
 
 
 @pytest.mark.gpu
@@ -655,15 +619,13 @@ def test_dia_kernel_on_offset_view():
     xt = torch.as_tensor(x, device="cuda")
     want = spmv_mod.dia_spmv_plain(shifted, xt, plan)
     for dia in (shifted, wide[:, :, 1:]):
-        assert _rel(spmv_mod.dia_spmv(dia, xt, plan), want) < 1e-5
+        assert C.rel(spmv_mod.dia_spmv(dia, xt, plan), want) < 1e-5
 
 
 def _qr_case(grid=24, seed=0):
     """chip_smoke's least-squares matrix [A5; 0.1 I] on a grid x grid mesh
     (n = grid², m = 2n) and its minimum-norm transpose."""
-    import chip_smoke
-
-    a = chip_smoke.qr_matrix(seed, grid)
+    a = C.port(C.grid_ls(grid, seed))
     return a, rt.transpose(a, device="cpu")
 
 
@@ -691,7 +653,7 @@ def test_kernel_on_qr_r_plans_on_card(monkeypatch, kind, B):
     got = sptrsv_multi(tx, X, tplan, kind)
     torch.cuda.synchronize()
     assert sptrsv_multi.launches == before + 1
-    assert _rel(got, sptrsv_plain_multi(tx, X, tplan, kind)) < 1e-12
+    assert C.rel(got, sptrsv_plain_multi(tx, X, tplan, kind)) < 1e-12
 
 
 @pytest.mark.gpu
@@ -741,8 +703,7 @@ def test_factor_values_contract_on_card(kind):
     which copy and gaxpy take; they equal the CPU run's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    n, p, i, x = laplacian_5pt(12)
-    a = sprs_from_fields(n, n, p, i, x)
+    a = C.port("lap12")
     if kind == "qr":
         a = _qr_case(grid=12)[0]
     out = {}
@@ -807,17 +768,14 @@ def test_multi_drivers_on_card(monkeypatch, driver, mf_min_n):
     kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import chip_smoke
-
     monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
     monkeypatch.setattr(rt.config, "serve_mixed", "force")
     if driver.startswith("qrsol"):
         a = _qr_case(grid=12)[0]
     elif driver == "lusol_multi":
-        a = chip_smoke.make_matrix(20, 0)
+        a = C.port("unsym20")
     else:
-        n, p, i, x = laplacian_5pt(20)
-        a = sprs_from_fields(n, n, p, i, x)
+        a = C.port("lap20")
     B = np.random.default_rng(11).standard_normal((a.m, 8))
     card, cpu = _multi_run(driver, "cuda", a, B), _multi_run(driver, "cpu",
                                                              a, B)
@@ -880,14 +838,11 @@ def test_vals_drivers_on_card(monkeypatch, driver, case, mf_min_n):
     QR's one R sweep; the LU's dense skeleton runs none."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    import chip_smoke
-
     monkeypatch.setattr(rt.config, "mf_min_n", mf_min_n)
     if case == "lap":
-        n, p, i, x = laplacian_5pt(20)
-        a = sprs_from_fields(n, n, p, i, x)
+        a = C.port("lap20")
     elif case == "unsym":
-        a = chip_smoke.make_matrix(20, 0)
+        a = C.port("unsym20")
     else:
         a, aw = _qr_case(grid=12)
         a = a if case == "ls" else aw
@@ -922,7 +877,7 @@ def test_spmv_general_matches_plain_on_card(shape, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     m, n, nnz = shape
-    a = _rand_sprs(m, n, nnz, 3) if nnz else rt.Sprs.zeros(m, n, 0)
+    a = C.port(C.rand_pattern(m, n, nnz, 3)) if nnz else rt.Sprs.zeros(m, n, 0)
     np_dt = np.float32 if dtype == torch.float32 else np.float64
     plan = mxu_spmv_plan(a, np_dt)
     x = np.random.default_rng(m).standard_normal(n)
@@ -935,7 +890,7 @@ def test_spmv_general_matches_plain_on_card(shape, dtype, tol):
     assert tuple(got.shape) == (m,) and got.dtype == dtype
     want = spmm_plain(torch.as_tensor(a.x[: a.nnz()], dtype=dtype, device="cuda"),
                       xt[:, None], plan.spmm)[:, 0]
-    assert _rel(got, want) < tol
+    assert C.rel(got, want) < tol
     public = spmv_general(a, x, plan, device="cuda")
     assert public.device.type == "cuda" and torch.equal(public, got)
 
@@ -960,7 +915,7 @@ def test_sanitize_rejects_a_corrupted_plan_on_card(monkeypatch, kernel):
     monkeypatch.setattr(sptrsv_cuda, "sptrsv_plain_multi", no_plain)
     monkeypatch.setattr(sptrsv_cuda, "_sweep_plain", no_plain)
     if kernel == "spmm":
-        a = _rand_sprs(400, 300, 2000, 1)
+        a = C.port(C.rand_pattern(400, 300, 2000, 1))
         X = torch.randn((300, 4), dtype=torch.float64, device="cuda")
         vals = torch.as_tensor(a.x[: a.nnz()], device="cuda")
         run = lambda plan: spmm_fn(plan)(vals, X)
@@ -969,7 +924,7 @@ def test_sanitize_rejects_a_corrupted_plan_on_card(monkeypatch, kernel):
         bad.col_idx[7] = 300  # a column outside A
         counter, name = spmm_csr, "SpMM kernel: col_idx"
     else:
-        t = _tri(0, g=8)
+        t = _tri(0, "lap8")
         X = torch.randn((t.n, 2), dtype=torch.float64, device="cuda")
         tx = torch.as_tensor(t.x[: t.nnz()], device="cuda")
         good, bad = rt.tri_plan(t, 0), rt.tri_plan(t, 0)
@@ -997,8 +952,8 @@ def test_spgemm_general_on_card():
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    a = _rand_sprs(3000, 2500, 20_000, 4)
-    b = _rand_sprs(2500, 2800, 20_000, 5)
+    a = C.port(C.rand_pattern(3000, 2500, 20_000, 4))
+    b = C.port(C.rand_pattern(2500, 2800, 20_000, 5))
     for dtype, tol in (("float64", 1e-12), ("float32", 1e-5)):
         got = spgemm_general(a, b, dtype=dtype, device="cuda")
         want = spgemm_general(a, b, dtype=dtype, device="cpu")
@@ -1022,7 +977,7 @@ def test_general_ops_on_card():
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    a = _rand_sprs(500, 400, 3000, 6)
+    a = C.port(C.rand_pattern(500, 400, 3000, 6))
     x = np.random.default_rng(7).standard_normal(400)
     grads = {}
     for dev in ("cpu", "cuda"):
@@ -1033,7 +988,7 @@ def test_general_ops_on_card():
         (r * r).sum().backward()
         grads[dev] = [t.detach().cpu() for t in (r, ax.grad, xt.grad)]
     for got, want in zip(grads["cuda"], grads["cpu"]):
-        assert _rel(got, want) < 1e-12
+        assert C.rel(got, want) < 1e-12
     e = chain(a).transpose().multiply(a).scale(2.0).add(rt.Sprs.eye(400), beta=0.5)
     want = e.run(multiply_kernel="esc", device="cpu")
     for kernel in ("auto", "mxu", "esc"):
@@ -1084,10 +1039,10 @@ def test_dist_cholsol_vals_on_card(nccl_mesh, monkeypatch):
     from rsparse_tpu_torch import parallel as par
 
     monkeypatch.setattr(rt.config, "mf_min_n", 100)
-    n, p, i, x = laplacian_5pt(20)
-    a = sprs_from_fields(n, n, p, i, x)
+    a = C.port("lap20")
+    n, x = a.n, a.x[: a.nnz()]
     K = 5
-    diag = i == np.repeat(np.arange(n), np.diff(p))
+    diag = C.diag_mask(a)
     AxK = np.tile(x, (K, 1))
     AxK[:, diag] *= (1.0 + 0.2 * np.arange(K))[:, None]
     B = np.random.default_rng(13).standard_normal((K, n))
@@ -1112,8 +1067,8 @@ def test_dist_spgemm_on_card(nccl_mesh):
     from rsparse_tpu_torch.ops.spgemm_general import (
         _range_part, mxu_spgemm_plan, spgemm_general, spgemm_general_dist)
 
-    a = _rand_sprs(3000, 2500, 20_000, 4)
-    b = _rand_sprs(2500, 2800, 20_000, 5)
+    a = C.port(C.rand_pattern(3000, 2500, 20_000, 4))
+    b = C.port(C.rand_pattern(2500, 2800, 20_000, 5))
     want = spgemm_general(a, b, dtype="float64", device="cuda")
     tol = 1e-12 * max(1.0, np.abs(want.x).max())
     for got in (par.dist_spgemm(a, b, nccl_mesh),

@@ -18,27 +18,7 @@ torch = pytest.importorskip("torch")
 
 import rsparse_tpu as rs  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
-from bench import laplacian_5pt, rand_csc  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
-
-README_8X8 = [
-    [8.2541e-01, 9.5622e-01, 4.6698e-01, 8.4410e-03, 6.3193e-01, 7.5741e-01, 5.3584e-01, 3.9448e-01],
-    [7.4808e-01, 2.0403e-01, 9.4649e-01, 2.5086e-01, 2.6931e-01, 5.5866e-01, 3.1827e-01, 2.9819e-02],
-    [6.3980e-01, 9.1615e-01, 8.5515e-01, 9.5323e-01, 7.8323e-01, 8.6003e-01, 7.5761e-01, 8.9255e-01],
-    [1.8726e-01, 8.9339e-01, 9.9796e-01, 5.0506e-01, 6.1439e-01, 4.3617e-01, 7.3369e-01, 1.5565e-01],
-    [2.8015e-02, 6.3404e-01, 8.4771e-01, 8.6419e-01, 2.7555e-01, 3.5909e-01, 7.6644e-01, 8.9905e-02],
-    [9.1817e-01, 8.6629e-01, 5.9917e-01, 1.9346e-01, 2.1960e-01, 1.8676e-01, 8.7020e-01, 2.7891e-01],
-    [3.1999e-01, 5.9988e-01, 8.7402e-01, 5.5710e-01, 2.4707e-01, 7.5652e-01, 8.3682e-01, 6.3145e-01],
-    [9.3807e-01, 7.5985e-02, 7.8758e-01, 3.6881e-01, 4.4553e-01, 5.5005e-02, 3.3908e-01, 3.4573e-01],
-]
-
-
-def _pair_fields(m, n, p, i, x):
-    return (rs.Sprs(len(x), m, n, p, i, x), sprs_from_fields(m, n, p, i, x))
-
-
-def _rand(m, n, nnz, seed):
-    return _pair_fields(m, n, *rand_csc(m, n, nnz, seed))
+import torch_cases as C  # noqa: E402
 
 
 def _dups(m, n, seed):
@@ -56,40 +36,19 @@ def _dups(m, n, seed):
     return tj.to_sprs(), tt.to_sprs()
 
 
-def _lap(g):
-    n, p, i, x = laplacian_5pt(g)
-    return _pair_fields(n, n, p, i, x)
-
-
-def _readme():
-    aj = rs.Sprs.new_from_vec(README_8X8)
-    return aj, sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-
-
 def _empty(m, n):
     return rs.Sprs.zeros(m, n, 0), rt.Sprs.zeros(m, n, 0)
 
 
 MATS = {
-    "rect_tall": lambda: _rand(40, 25, 160, 1),
-    "rect_wide": lambda: _rand(25, 40, 160, 2),
-    "square": lambda: _rand(30, 30, 150, 3),
+    "rect_tall": lambda: C.pair(C.rand_pattern(40, 25, 160, 1)),
+    "rect_wide": lambda: C.pair(C.rand_pattern(25, 40, 160, 2)),
+    "square": lambda: C.pair(C.rand_pattern(30, 30, 150, 3)),
     "dups": lambda: _dups(20, 20, 4),
-    "laplacian": lambda: _lap(5),
-    "readme_8x8": _readme,
+    "laplacian": lambda: C.pair("lap8"),
+    "readme_8x8": lambda: C.pair("readme8"),
     "empty": lambda: _empty(6, 6),
 }
-
-
-def _same(sj, st):
-    """Identical pattern, values to 1e-12."""
-    nz = sj.nnz()
-    assert (sj.m, sj.n, sj.nzmax) == (st.m, st.n, st.nzmax)
-    np.testing.assert_array_equal(sj.p[: sj.n + 1], st.p[: st.n + 1])
-    np.testing.assert_array_equal(sj.i[:nz], st.i[:nz])
-    xj, xt = np.asarray(sj.x)[:nz], np.asarray(st.x)[:nz]
-    assert xj.shape == xt.shape
-    assert np.abs(xj - xt).max(initial=0.0) <= 1e-12 * max(1.0, np.abs(xj).max(initial=0.0))
 
 
 def _partner(name):
@@ -97,23 +56,26 @@ def _partner(name):
     aj, _ = MATS[name]()
     if aj.nnz() == 0:
         return _empty(aj.m, aj.n)
-    return _rand(aj.m, aj.n, 2 * aj.nnz(), 99)
+    return C.pair(C.rand_pattern(aj.m, aj.n, 2 * aj.nnz(), 99))
 
 
 @pytest.mark.parametrize("name", sorted(MATS))
 def test_add(name):
     (aj, at), (bj, bt) = MATS[name](), _partner(name)
-    _same(rs.add(aj, bj, 2.0, -0.5), rt.add(at, bt, 2.0, -0.5, device="cpu"))
-    _same(rs.add(aj, aj), rt.add(at, at, device="cpu"))
+    C.same_sprs(rt.add(at, bt, 2.0, -0.5, device="cpu"),
+                rs.add(aj, bj, 2.0, -0.5), nzmax=True)
+    C.same_sprs(rt.add(at, at, device="cpu"), rs.add(aj, aj), nzmax=True)
 
 
 @pytest.mark.parametrize("name", sorted(MATS))
 def test_multiply_and_transpose(name):
     aj, at = MATS[name]()
-    _same(rs.transpose(aj), rt.transpose(at, device="cpu"))
+    C.same_sprs(rt.transpose(at, device="cpu"), rs.transpose(aj), nzmax=True)
     bj, bt = rs.transpose(aj), rt.transpose(at, device="cpu")
-    _same(rs.multiply(aj, bj), rt.multiply(at, bt, device="cpu"))
-    _same(rs.multiply(bj, aj), rt.multiply(bt, at, device="cpu"))
+    C.same_sprs(rt.multiply(at, bt, device="cpu"),
+                rs.multiply(aj, bj), nzmax=True)
+    C.same_sprs(rt.multiply(bt, at, device="cpu"),
+                rs.multiply(bj, aj), nzmax=True)
 
 
 @pytest.mark.parametrize("name", sorted(MATS))
@@ -125,8 +87,10 @@ def test_gaxpy_norm_scalar_ops(name):
     assert isinstance(rt_, list) and len(rt_) == len(rj)
     assert np.abs(np.asarray(rj) - np.asarray(rt_)).max(initial=0.0) <= 1e-12
     assert abs(rs.norm(aj) - rt.norm(at, device="cpu")) <= 1e-12
-    _same(rs.scpmat(1.5, aj), rt.scpmat(1.5, at, device="cpu"))
-    _same(rs.scxmat(-2.5, aj), rt.scxmat(-2.5, at, device="cpu"))
+    C.same_sprs(rt.scpmat(1.5, at, device="cpu"),
+                rs.scpmat(1.5, aj), nzmax=True)
+    C.same_sprs(rt.scxmat(-2.5, at, device="cpu"),
+                rs.scxmat(-2.5, aj), nzmax=True)
 
 
 @pytest.mark.parametrize("name", ["square", "dups", "laplacian", "readme_8x8"])
@@ -134,12 +98,15 @@ def test_permute_symperm_fkeep_print(name):
     aj, at = MATS[name]()
     rng = np.random.default_rng(8)
     pinv, q = rng.permutation(aj.m), rng.permutation(aj.n)
-    _same(rs.permute(aj, pinv, q), rt.permute(at, pinv, q, device="cpu"))
-    _same(rs.permute(aj, None, None), rt.permute(at, None, None, device="cpu"))
-    _same(rs.symperm(aj, pinv), rt.symperm(at, pinv, device="cpu"))
+    C.same_sprs(rt.permute(at, pinv, q, device="cpu"),
+                rs.permute(aj, pinv, q), nzmax=True)
+    C.same_sprs(rt.permute(at, None, None, device="cpu"),
+                rs.permute(aj, None, None), nzmax=True)
+    C.same_sprs(rt.symperm(at, pinv, device="cpu"),
+                rs.symperm(aj, pinv), nzmax=True)
     keep = lambda i, j, x: x > 0.0 and i != j
     assert rs.fkeep(aj, keep) == rt.fkeep(at, keep)
-    _same(aj, at)
+    C.same_sprs(at, aj, nzmax=True)
     outs = []
     for mod, a, kw in ((rs, aj, {}), (rt, at, {"device": "cpu"})):
         buf = io.StringIO()
@@ -174,7 +141,8 @@ def test_ipvec_pvec_pinvert():
 
 
 def test_dimension_mismatch_raises_in_both():
-    (aj, at), (bj, bt) = _rand(5, 4, 10, 1), _rand(5, 3, 8, 2)
+    (aj, at), (bj, bt) = (C.pair(C.rand_pattern(5, 4, 10, 1)),
+                          C.pair(C.rand_pattern(5, 3, 8, 2)))
     for mod, a, b, kw in ((rs, aj, bj, {}), (rt, at, bt, {"device": "cpu"})):
         with pytest.raises(ValueError):
             mod.add(a, b, **kw)
@@ -201,7 +169,7 @@ def test_backend_host_matches_device(name, monkeypatch):
                         rt.gaxpy(at, x, np.zeros(at.m), device="cpu"),
                         rt.norm(at, device="cpu"))
     for sd, sh in zip(got["device"][0], got["host"][0]):
-        _same(sh, sd)
+        C.same_sprs(sd, sh, nzmax=True)
     assert np.abs(np.asarray(got["device"][1]) - np.asarray(got["host"][1])).max(initial=0.0) <= 1e-12
     assert abs(got["device"][2] - got["host"][2]) <= 1e-12
 
@@ -217,17 +185,18 @@ def ops_on_cpu(monkeypatch):
 @pytest.mark.parametrize("name", ["rect_tall", "square", "dups", "readme_8x8", "empty"])
 def test_operator_overloads(name, ops_on_cpu):
     (aj, at), (bj, bt) = MATS[name](), _partner(name)
-    _same(aj + bj, at + bt)
-    _same(aj - bj, at - bt)
-    _same(aj + 2, at + 2)
-    _same(2.5 + aj, 2.5 + at)
-    _same(aj - 1, at - 1)
-    _same(1 - aj, 1 - at)
-    _same(aj * 3, at * 3)
-    _same(3 * aj, 3 * at)
-    _same(aj / 4, at / 4)
-    _same(-aj, -at)
-    _same(aj * rs.transpose(aj), at * rt.transpose(at, device="cpu"))
+    C.same_sprs(at + bt, aj + bj, nzmax=True)
+    C.same_sprs(at - bt, aj - bj, nzmax=True)
+    C.same_sprs(at + 2, aj + 2, nzmax=True)
+    C.same_sprs(2.5 + at, 2.5 + aj, nzmax=True)
+    C.same_sprs(at - 1, aj - 1, nzmax=True)
+    C.same_sprs(1 - at, 1 - aj, nzmax=True)
+    C.same_sprs(at * 3, aj * 3, nzmax=True)
+    C.same_sprs(3 * at, 3 * aj, nzmax=True)
+    C.same_sprs(at / 4, aj / 4, nzmax=True)
+    C.same_sprs(-at, -aj, nzmax=True)
+    C.same_sprs(at * rt.transpose(at, device="cpu"),
+                aj * rs.transpose(aj), nzmax=True)
     assert at.__add__("x") is NotImplemented and at.__mul__(None) is NotImplemented
 
 

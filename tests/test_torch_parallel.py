@@ -25,6 +25,7 @@ from rsparse_tpu import parallel as jpar  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
 from rsparse_tpu_torch import parallel as par  # noqa: E402
 from rsparse_tpu_torch.symbolic import native  # noqa: E402
+import torch_cases as C  # noqa: E402
 import torch_dist_ranks as R  # noqa: E402
 
 DS = (2, 4)
@@ -42,20 +43,6 @@ def ranks(tmp_path_factory):
         p.close()
 
 
-def _j(f):
-    m, n, p, i, x = f
-    return rs.Sprs(len(x), m, n, p, i, x)
-
-
-def _t(f):
-    return rt.sprs_from_fields(*f)
-
-
-def _rel(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
-
-
 def test_names():
     """Every public name of the JAX distributed layer has a counterpart."""
     from rsparse_tpu_torch.ops import spgemm_general
@@ -68,7 +55,8 @@ def test_names():
 @pytest.mark.parametrize("D", DS)
 def test_partition_entries_fields(D):
     f = R.general(50, 50, 1, 300)
-    je, te = jpar.partition_entries(_j(f), D), par.partition_entries(_t(f), D)
+    je = jpar.partition_entries(C.jax(f), D)
+    te = par.partition_entries(C.port(f), D)
     for k in ("vals", "rows", "cols", "chunk", "m", "n"):
         np.testing.assert_array_equal(getattr(te, k), getattr(je, k), k)
 
@@ -77,10 +65,10 @@ def test_partition_entries_fields(D):
 @pytest.mark.parametrize("D", DS)
 def test_dist_tri_plan_fields(D, kind):
     f = R.spd(80, 3)
-    jl = rs.chol(_j(f), rs.schol(_j(f), 0)).l
+    jl = rs.chol(C.jax(f), rs.schol(C.jax(f), 0)).l
     jl.x = np.asarray(jl.x)
     jt = jl if kind in (0, 2) else rs.transpose(jl)
-    tl = rt.chol(_t(f), rt.schol(_t(f), 0), device="cpu").l
+    tl = rt.chol(C.port(f), rt.schol(C.port(f), 0), device="cpu").l
     tt = tl if kind in (0, 2) else rt.transpose(tl, device="cpu")
     jp, tp = jpar.dist_tri_plan(jt, kind, D), par.dist_tri_plan(tt, kind, D)
     for k in ("n", "nlev", "wmax", "scatter_form"):
@@ -97,10 +85,10 @@ def test_make_mesh_spans_every_rank(ranks, D):
 @pytest.mark.parametrize("D", DS)
 def test_dist_gaxpy_and_norm(ranks, D):
     ref, port = ranks["jax_parallel", D], ranks["parallel", D]
-    assert _rel(port.rank0("gaxpy"), ref.rank0("gaxpy")) <= 1e-12
-    assert _rel(port.rank0("make_gaxpy"), ref.rank0("gaxpy")) <= 1e-12
-    assert _rel(port.rank0("make_gaxpy_copy"), ref.rank0("gaxpy")) <= 1e-12
-    assert _rel(port.rank0("norm"), ref.rank0("norm")) <= 1e-12
+    assert C.rel(port.rank0("gaxpy"), ref.rank0("gaxpy")) <= 1e-12
+    assert C.rel(port.rank0("make_gaxpy"), ref.rank0("gaxpy")) <= 1e-12
+    assert C.rel(port.rank0("make_gaxpy_copy"), ref.rank0("gaxpy")) <= 1e-12
+    assert C.rel(port.rank0("norm"), ref.rank0("norm")) <= 1e-12
 
 
 @pytest.mark.parametrize("case", ["sq", "rect"])
@@ -115,7 +103,7 @@ def test_dist_spgemm(ranks, D, case):
         for k in ("p", "i"):
             np.testing.assert_array_equal(port.rank0(f"{name}_{k}"),
                                           ref.rank0(f"{name}_{k}"))
-        assert _rel(port.rank0(f"{name}_x"), ref.rank0(f"{name}_x")) <= tol
+        assert C.rel(port.rank0(f"{name}_x"), ref.rank0(f"{name}_x")) <= tol
 
 
 @pytest.mark.parametrize("D", DS)
@@ -124,7 +112,7 @@ def test_dist_tri_solve(ranks, D):
     the JAX tests' 1e-11."""
     ref, port = ranks["jax_parallel", D], ranks["parallel", D]
     for kind in range(4):
-        assert _rel(port.rank0(f"tri{kind}"), ref.rank0(f"tri{kind}")) \
+        assert C.rel(port.rank0(f"tri{kind}"), ref.rank0(f"tri{kind}")) \
             <= 1e-12, kind
     np.testing.assert_allclose(port.rank0("cholsol"), ref.rank0("cholsol"),
                                rtol=1e-11, atol=1e-11)
@@ -135,7 +123,7 @@ def test_refine_step(ranks, D):
     """One step from X = 0 on the natural-order factor is the exact solve
     (and equals the JAX package's step); one from a perturbed X shrinks
     its error by 1e6, as the JAX package's tests ask."""
-    a = rt.sprs_from_fields(*R.spd(80, 3))
+    a = C.port(R.spd(80, 3))
     port = ranks["parallel", D]
     B = np.random.default_rng(2).standard_normal((4, 80))
     X1 = port.rank0("refine0")

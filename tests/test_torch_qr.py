@@ -26,50 +26,16 @@ import rsparse_tpu.factor.frontal_qr as fq_jax  # noqa: E402
 
 import rsparse_tpu_torch as rt  # noqa: E402
 import rsparse_tpu_torch.factor.frontal_qr as fq_torch  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields, symb_from_fields  # noqa: E402
-
-
-def sparse_ls(m, n, extra, seed=0, dup=False):
-    """An m x n sparse matrix with a dominant diagonal (the JAX package's
-    `_sparse_ls`, tests/test_frontal_qr.py), as CSC arrays; with `dup`
-    every 7th entry is stored twice (the first copy a different value)."""
-    rng = np.random.default_rng(seed)
-    d = np.zeros((m, n))
-    d[np.arange(n), np.arange(n)] = 5.0 + rng.random(n)
-    for _ in range(extra):
-        i, j = rng.integers(0, m), rng.integers(0, n)
-        d[i, j] += rng.standard_normal()
-    r, c = np.nonzero(d.T)  # column-major: (col, row)
-    rows, cols, vals = c, r, d[c, r]
-    if dup:
-        k = np.arange(0, len(rows), 7)
-        rows = np.insert(rows, k, rows[k])
-        cols = np.insert(cols, k, cols[k])
-        vals = np.insert(vals, k, vals[k] + 0.5)
-    p = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(cols, minlength=n), out=p[1:])
-    return p, rows.astype(np.int64), vals, d
-
-
-def both(m, n, p, i, x):
-    """(JAX Sprs, port Sprs) of one CSC matrix."""
-    return (rs.Sprs(len(x), m, n, p, i, x),
-            sprs_from_fields(m, n, p, i, x))
-
-
-def port_symb(sj):
-    return symb_from_fields(q=sj.q, pinv=sj.pinv, parent=sj.parent, cp=sj.cp,
-                            lnz=sj.lnz, unz=sj.unz, m2=sj.m2)
+import torch_cases as C  # noqa: E402
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "dup"])
 def mf(request):
     """Both packages' multifrontal plans and factorizations (smax = 16) of
-    one 300 x 200 matrix, with or without duplicate entries."""
-    p, i, x, _ = sparse_ls(300, 200, 900, dup=request.param)
-    aj, at = both(300, 200, p, i, x)
+    one 150 x 100 matrix, with or without duplicate entries."""
+    aj, at = C.pair("ls_dup" if request.param else "ls")
     sj = rs.sqr(aj, 2, True)
-    st = port_symb(sj)  # before the JAX planner rebinds sj.q
+    st = C.symb(sj)  # before the JAX planner rebinds sj.q
     q0 = np.array(sj.q)
     pj = fq_jax.build_qr_mf_plan(aj, sj, smax=16)
     pt = fq_torch.build_qr_mf_plan(at, st, smax=16)
@@ -143,39 +109,21 @@ def test_mf_r_is_a_qr_of_a(mf):
 # ---------------------------------------------------------------------------
 
 
-def _tall(m, n, seed, density):
-    rng = np.random.default_rng(seed)
-    d = rng.standard_normal((m, n)) * (rng.random((m, n)) < density)
-    d[np.arange(n), np.arange(n)] += 3.0
-    return d
-
-
-def _deficient():
-    """Columns 3 and 4 share their only row: vcount adds fictitious rows."""
-    d = _tall(30, 20, 0, 0.1)
-    d[:, 3:5] = 0.0
-    d[5, 3], d[5, 4] = 1.0, 2.0
-    return d
-
-
-LEVEL_CASES = {
-    "tall_natural": (lambda: _tall(40, 15, 1, 0.35), -1),
-    "tall_amd": (lambda: _tall(60, 40, 2, 0.08), 2),
-    "identity_reflector": (lambda: np.array([[2.0, 1.0], [0.0, 3.0]]), -1),
-    "fictitious_rows": (_deficient, 2),
-}
+LEVEL_CASES = {"tall_natural": ("tall40x15", -1),
+               "tall_amd": ("tall60x40", 2),
+               "identity_reflector": ("upper2x2", -1),
+               "fictitious_rows": ("deficient", 2)}
 
 
 @pytest.fixture(scope="module")
 def level_factors():
     """{case: (JAX Nmrc, port Nmrc, host-engine Nmrc, port Symb, A)}."""
     out = {}
-    for name, (make, order) in LEVEL_CASES.items():
-        d = make()
-        aj = rs.Sprs.new_from_vec(d.tolist())
-        at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
+    for name, (case, order) in LEVEL_CASES.items():
+        d = C.dense(case)
+        aj, at = C.pair(case)
         sj = rs.sqr(aj, order, True)
-        st, sh = port_symb(sj), port_symb(sj)
+        st, sh = C.symb(sj), C.symb(sj)
         nj = rs.factor.qr(aj, sj)
         nt = rt.qr(at, st, device="cpu")
         with pytest.MonkeyPatch.context() as mp:
@@ -184,12 +132,6 @@ def level_factors():
         assert sh._qr_route == "host"
         out[name] = (nj, nt, nh, st, d)
     return out
-
-
-def _close(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    assert np.abs(a - b).max(initial=0.0) <= 1e-12 * max(
-        1.0, np.abs(a).max(initial=0.0))
 
 
 @pytest.mark.parametrize("name", sorted(LEVEL_CASES))
@@ -203,8 +145,8 @@ def test_level_qr_v_r_beta(level_factors, name, against):
         assert mt.nnz() == nz and (mt.m, mt.n) == (mr.m, mr.n)
         _eq(mr.p, mt.p, "p")
         _eq(np.asarray(mr.i)[:nz], mt.i[:nz], "i")
-        _close(np.asarray(mr.x)[:nz], mt.x[:nz])
-    _close(np.asarray(ref.b), nt.b)
+        C.close(mt.x[:nz], np.asarray(mr.x)[:nz])
+    C.close(nt.b, np.asarray(ref.b))
 
 
 def test_level_qr_identity_reflector(level_factors):
@@ -226,9 +168,7 @@ def test_level_qr_fictitious_rows(level_factors):
 
 def test_symbolic_counts_and_vcount():
     """The two symbolic wrappers against the JAX package's."""
-    d = _deficient()
-    aj = rs.Sprs.new_from_vec(d.tolist())
-    at = sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
+    aj, at = C.pair("deficient")
     parent = rs.symbolic.etree(aj, True)
     post = rs.symbolic.post(aj.n, parent)
     _eq(rs.symbolic.counts(aj, parent, post, True),

@@ -17,25 +17,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import rsparse_tpu as rs  # noqa: E402
-
 import rsparse_tpu_torch as rt  # noqa: E402
 import rsparse_tpu_torch.solve as solve_torch  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 
-M, N = 300, 200
 ROUTE_MIN = {"device_mf": 100, "device_level": 10**9}
-
-
-def _dense(branch):
-    """The 300 x 200 least-squares matrix, or its 200 x 300 transpose."""
-    rng = np.random.default_rng(0)
-    d = np.zeros((M, N))
-    d[np.arange(N), np.arange(N)] = 5.0 + rng.random(N)
-    for _ in range(900):
-        i, j = rng.integers(0, M), rng.integers(0, N)
-        d[i, j] += rng.standard_normal()
-    return d if branch == "ls" else d.T.copy()
+CASE = {"ls": "ls", "mn": "ls_mn"}  # 150 x 100, or its 100 x 150 transpose
 
 
 def _want(d, b):
@@ -43,52 +30,16 @@ def _want(d, b):
     return np.linalg.lstsq(d, b, rcond=None)[0]
 
 
-def _rel(x, want):
-    return np.abs(np.asarray(x) - want).max() / max(1.0, np.abs(want).max())
-
-
-def _port(aj):
-    return sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-
-
-def _min_n(mp, n):
-    mp.setattr(rs.config, "mf_min_n", n)
-    mp.setattr(rt.config, "mf_min_n", n)
-
-
-@pytest.fixture(scope="module")
-def jax_runs():
-    """The JAX package's qrsol (device routes and host engine) and
-    qrsol_ls on each branch, each run once: {key: x}."""
-    out = {}
-    for branch in ("ls", "mn"):
-        d = _dense(branch)
-        aj = rs.Sprs.new_from_vec(d.tolist())
-        b = np.random.default_rng(1).standard_normal(d.shape[0])
-        for route, n in ROUTE_MIN.items():
-            with pytest.MonkeyPatch.context() as mp:
-                _min_n(mp, n)
-                out[(branch, route)] = np.asarray(rs.qrsol(aj, list(b), 2))
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(rs.config, "backend", "host")
-            out[(branch, "host")] = np.asarray(rs.qrsol(aj, list(b), 2))
-        with pytest.MonkeyPatch.context() as mp:
-            _min_n(mp, 100)
-            out[(branch, "qrsol_ls")] = np.asarray(rs.qrsol_ls(aj, b, 2))
-    return out
-
-
 def _case(branch):
-    d = _dense(branch)
-    aj = rs.Sprs.new_from_vec(d.tolist())
+    d = C.dense(CASE[branch])
     b = np.random.default_rng(1).standard_normal(d.shape[0])
-    return d, _port(aj), b
+    return d, C.port(CASE[branch]), b
 
 
 @pytest.mark.parametrize("branch", ["ls", "mn"])
 @pytest.mark.parametrize("route", ["device_mf", "device_level"])
-def test_qrsol_matches_jax(monkeypatch, jax_runs, branch, route):
-    _min_n(monkeypatch, ROUTE_MIN[route])
+def test_qrsol_matches_jax(monkeypatch, branch, route):
+    C.mf(monkeypatch, ROUTE_MIN[route])
     d, at, b = _case(branch)
     s = rt.sqr(at if branch == "ls" else rt.transpose(at, device="cpu"), 2,
                True)
@@ -96,27 +47,28 @@ def test_qrsol_matches_jax(monkeypatch, jax_runs, branch, route):
     assert s._qr_route == route
     n = d.shape[1]
     assert x.shape == (n,)
-    assert _rel(x, jax_runs[(branch, route)][:n]) <= 1e-10
-    assert _rel(x, _want(d, b)) <= 1e-10
+    assert C.rel(x, C.jax_answer("qrsol", CASE[branch], list(b), 2)[:n]) \
+        <= 1e-10
+    assert C.rel(x, _want(d, b)) <= 1e-10
 
 
 @pytest.mark.parametrize("branch", ["ls", "mn"])
-def test_qrsol_host_engine_matches_jax(monkeypatch, jax_runs, branch):
-    monkeypatch.setattr(rt.config, "backend", "host")
+def test_qrsol_host_engine_matches_jax(monkeypatch, branch):
+    C.host(monkeypatch)
     d, at, b = _case(branch)
     s = rt.sqr(at if branch == "ls" else rt.transpose(at, device="cpu"), 2,
                True)
     x = rt.qrsol(at, list(b), 2, sym=s, device="cpu")
     assert s._qr_route == "host"
-    assert _rel(x, jax_runs[(branch, "host")][: d.shape[1]]) <= 1e-12
+    want = C.jax_answer("qrsol", CASE[branch], list(b), 2)
+    assert C.rel(x, want[: d.shape[1]]) <= 1e-12
 
 
 def test_qrsol_readme_3x2():
     """The docstring's overdetermined 3 x 2 system, both packages."""
-    rows = [[1.0, 0.0], [0.0, 2.0], [1.0, 1.0]]
-    xj = rs.qrsol(rs.Sprs.new_from_vec(rows), [1.0, 4.0, 3.0], 2)
+    xj = C.jax_answer("qrsol", "readme3x2", [1.0, 4.0, 3.0], 2)
     b = [1.0, 4.0, 3.0]
-    x = rt.qrsol(rt.Sprs.new_from_vec(rows), b, 2, device="cpu")
+    x = rt.qrsol(C.port("readme3x2"), b, 2, device="cpu")
     np.testing.assert_allclose(x, [1.0, 2.0], atol=1e-12)
     np.testing.assert_allclose(x, np.asarray(xj)[:2], atol=1e-12)
     assert b[:2] == list(x) and len(b) == 3  # overwritten, not shrunk
@@ -125,26 +77,26 @@ def test_qrsol_readme_3x2():
 @pytest.mark.parametrize("branch", ["ls", "mn"])
 def test_qrsol_sym_reuse_refreshed_values(monkeypatch, branch):
     """One analysis, two value sets: the plan is kept and refactored."""
-    _min_n(monkeypatch, 100)
+    C.mf(monkeypatch, 100)
     d, at, b = _case(branch)
     s = rt.sqr(at if branch == "ls" else rt.transpose(at, device="cpu"), 2,
                True)
     x1 = rt.qrsol(at, b.copy(), 2, sym=s, device="cpu")
     plan = s._mf_qr_plan
     d2 = d * (1.0 + 0.5 * (np.arange(d.shape[1]) % 3 == 0))  # column scaling
-    a2 = rt.Sprs.new_from_vec(d2.tolist())
+    a2 = C.port(d2)
     np.testing.assert_array_equal(a2.p, at.p)
     x2 = rt.qrsol(a2, b.copy(), 2, sym=s, device="cpu")
     assert s._mf_qr_plan is plan and s._qr_route == "device_mf"
-    assert _rel(x1, _want(d, b)) <= 1e-10
-    assert _rel(x2, _want(d2, b)) <= 1e-10
+    assert C.rel(x1, _want(d, b)) <= 1e-10
+    assert C.rel(x2, _want(d2, b)) <= 1e-10
 
 
 @pytest.mark.parametrize("route", ["device_mf", "device_level"])
 def test_qrsol_minimum_norm_overwrite(monkeypatch, route):
     """m < n: a list b grows to the n values of x; a fixed ndarray (m
     values) is left as it is and x comes back as the return value."""
-    _min_n(monkeypatch, ROUTE_MIN[route])
+    C.mf(monkeypatch, ROUTE_MIN[route])
     d, at, b = _case("mn")
     blist = list(b)
     x = rt.qrsol(at, blist, 2, device="cpu")
@@ -157,7 +109,7 @@ def test_qrsol_minimum_norm_overwrite(monkeypatch, route):
 
 def test_qrsol_least_squares_overwrite(monkeypatch):
     """m > n: the first n entries of an ndarray b take x."""
-    _min_n(monkeypatch, 100)
+    C.mf(monkeypatch, 100)
     d, at, b = _case("ls")
     barr = b.copy()
     x = rt.qrsol(at, barr, 2, device="cpu")
@@ -165,23 +117,12 @@ def test_qrsol_least_squares_overwrite(monkeypatch):
     np.testing.assert_array_equal(barr[d.shape[1]:], b[d.shape[1]:])
 
 
-def _scale_tree(obj, f):
-    """Multiply every floating tensor of a cached factor tree by f, in
-    place (a factor off by a relative 1e-6)."""
-    if isinstance(obj, torch.Tensor):
-        if obj.is_floating_point():
-            obj.mul_(f)
-    elif isinstance(obj, (list, tuple)):
-        for o in obj:
-            _scale_tree(o, f)
-
-
 @pytest.mark.parametrize("branch", ["ls", "mn"])
 def test_qrsol_gate_escapes_to_host_exact(monkeypatch, branch):
     """A tree that misses the acceptance gate (its Q blocks off by 1e-6):
     the host engine answers, factoring with the plan's q_host, not the
     composed ordering in s.q."""
-    _min_n(monkeypatch, 100)
+    C.mf(monkeypatch, 100)
     d, at, b = _case(branch)
     s = rt.sqr(at if branch == "ls" else rt.transpose(at, device="cpu"), 2,
                True)
@@ -189,7 +130,7 @@ def test_qrsol_gate_escapes_to_host_exact(monkeypatch, branch):
     assert s._qr_route == "device_mf"
     plan = s._mf_qr_plan
     assert not np.array_equal(plan.q_host, s.q)
-    _scale_tree(plan.__dict__["_cache_q"], 1.0 + 1e-6)
+    C.scale_tree(plan.__dict__["_cache_q"], 1.0 + 1e-6)
     name = "_qr_ls_host_exact" if branch == "ls" else "_qr_mn_host_exact"
     real, seen = getattr(solve_torch, name), []
 
@@ -201,23 +142,18 @@ def test_qrsol_gate_escapes_to_host_exact(monkeypatch, branch):
     x = rt.qrsol(at, b.copy(), 2, sym=s, device="cpu")
     assert s._qr_route == "host_exact"
     assert len(seen) == 1 and seen[0] is plan.q_host
-    assert _rel(x, _want(d, b)) <= 1e-10
+    assert C.rel(x, _want(d, b)) <= 1e-10
 
 
 def test_qrsol_rank_deficient_reaches_the_gate(monkeypatch):
     """Two columns that share their only row: R has a zero diagonal, the
     sweep's inf/NaN fails the gate (it does not raise), and the host
     engine's reference-exact answer is returned."""
-    _min_n(monkeypatch, 10)
-    rng = np.random.default_rng(0)
-    d = rng.standard_normal((30, 20)) * (rng.random((30, 20)) < 0.1)
-    d[np.arange(20), np.arange(20)] += 3.0
-    d[:, 3:5] = 0.0
-    d[5, 3], d[5, 4] = 1.0, 2.0
-    a = rt.Sprs.new_from_vec(d.tolist())
+    C.mf(monkeypatch, 10)
+    a = C.port("deficient")
     s = rt.sqr(a, 2, True)
     assert s.m2 > a.m
-    b = rng.standard_normal(30)
+    b = np.random.default_rng(0).standard_normal(30)
     x = rt.qrsol(a, b.copy(), 2, sym=s, device="cpu")
     assert s._qr_route == "host_exact"
     with monkeypatch.context() as mp:
@@ -227,17 +163,17 @@ def test_qrsol_rank_deficient_reaches_the_gate(monkeypatch):
 
 
 @pytest.mark.parametrize("branch", ["ls", "mn"])
-def test_qrsol_ls_matches_jax(monkeypatch, jax_runs, branch):
-    _min_n(monkeypatch, 100)
+def test_qrsol_ls_matches_jax(monkeypatch, branch):
+    C.mf(monkeypatch, 100)
     d, at, b = _case(branch)
     x = rt.qrsol_ls(at, b, 2, device="cpu")
-    assert _rel(x, jax_runs[(branch, "qrsol_ls")]) <= 1e-10
-    assert _rel(x, _want(d, b)) <= 1e-10
+    assert C.rel(x, C.jax_answer("qrsol_ls", CASE[branch], b, 2)) <= 1e-10
+    assert C.rel(x, _want(d, b)) <= 1e-10
 
 
 def test_qrsol_ls_level_route(monkeypatch):
     """Below mf_min_n the Gram factor is the level Cholesky's, its solves
     the SpTRSV sweeps."""
-    _min_n(monkeypatch, 10**9)
+    C.mf(monkeypatch, 10**9)
     d, at, b = _case("ls")
-    assert _rel(rt.qrsol_ls(at, b, 2, device="cpu"), _want(d, b)) <= 1e-10
+    assert C.rel(rt.qrsol_ls(at, b, 2, device="cpu"), _want(d, b)) <= 1e-10

@@ -15,22 +15,12 @@ torch = pytest.importorskip("torch")
 
 import rsparse_tpu as rs  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
-from bench import rand_csc  # noqa: E402
 from rsparse_tpu.ops.plan import transpose_plan as transpose_plan_jax  # noqa: E402
 from rsparse_tpu.ops.spmm_pallas import spmm_pallas  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.ops import spmm_cuda as st_spmm  # noqa: E402
 from rsparse_tpu_torch.ops.spmm_cuda import (  # noqa: E402
     spmm, spmm_csr, spmm_fn, spmm_plan, spmm_plan_cached)
-
-
-def _pair(m, n, nnz, seed):
-    p, i, x = rand_csc(m, n, nnz, seed)
-    return rs.Sprs(len(x), m, n, p, i, x), sprs_from_fields(m, n, p, i, x)
-
-
-def _rel(got, want):
-    return np.abs(got - want).max() / max(1.0, np.abs(want).max())
 
 
 # (200, 150, 2600): ~2,580 entries after de-duplication, so the JAX kernel
@@ -38,20 +28,20 @@ def _rel(got, want):
 @pytest.mark.parametrize("m,n,nnz", [(300, 211, 1200), (64, 64, 256),
                                      (17, 500, 2000), (200, 150, 2600)])
 def test_spmm_matches_pallas_kernel_f32(m, n, nnz):
-    aj, at = _pair(m, n, nnz, m + n)
+    aj, at = C.pair(C.rand_pattern(m, n, nnz, m + n))
     if nnz == 2600:
         assert at.nnz() > 2 * 1024
     X = np.random.default_rng(2).standard_normal((n, 16)).astype(np.float32)
     want = np.asarray(spmm_pallas(aj, X), np.float64)
     got = spmm(at, X, device="cpu")
     assert got.dtype == torch.float32 and tuple(got.shape) == (m, 16)
-    assert _rel(got.double().numpy(), want) < 1e-5
+    assert C.rel(got.double().numpy(), want) < 1e-5
 
 
 def test_spmm_plan_is_the_csr_copy():
     """The kernel's CSR streams are the JAX transpose plan's arrays, and the
     plan is cached per pattern."""
-    aj, at = _pair(50, 40, 300, 5)
+    aj, at = C.pair(C.rand_pattern(50, 40, 300, 5))
     tj = transpose_plan_jax(aj)
     plan = spmm_plan(at)
     np.testing.assert_array_equal(plan.row_ptr, tj.out_p)
@@ -65,16 +55,16 @@ def test_spmm_empty_matrix_and_f64():
     out = spmm(e, np.ones((5, 8)), device="cpu")
     assert out.dtype == torch.float64 and tuple(out.shape) == (4, 8)
     assert bool((out == 0).all())
-    aj, at = _pair(30, 20, 120, 6)
+    aj, at = C.pair(C.rand_pattern(30, 20, 120, 6))
     X = np.random.default_rng(3).standard_normal((20, 3))
-    assert _rel(spmm(at, X, device="cpu").numpy(), aj.to_dense_np() @ X) < 1e-13
+    assert C.rel(spmm(at, X, device="cpu"), aj.to_dense_np() @ X) < 1e-13
     with pytest.raises(TypeError):
         spmm(at, np.ones((20, 3), np.int64), device="cpu")
 
 
 @pytest.mark.parametrize("yform", ["none", "full", "per_row"])
 def test_gaxpy_multi_matches_jax_f64(yform):
-    aj, at = _pair(120, 90, 600, 5)
+    aj, at = C.pair(C.rand_pattern(120, 90, 600, 5))
     rng = np.random.default_rng(6)
     X = rng.standard_normal((90, 5))
     Y = {"none": None, "full": rng.standard_normal((120, 5)),
@@ -94,7 +84,7 @@ def test_gaxpy_multi_matches_jax_f64(yform):
     (np.ones((90, 5)), np.ones((120, 4))),  # wrong Y shape
 ])
 def test_gaxpy_multi_value_errors_in_both(X, Y):
-    aj, at = _pair(120, 90, 600, 5)
+    aj, at = C.pair(C.rand_pattern(120, 90, 600, 5))
     with pytest.raises(ValueError):
         rs.gaxpy_multi(aj, X, Y)
     with pytest.raises(ValueError):
@@ -102,7 +92,7 @@ def test_gaxpy_multi_value_errors_in_both(X, Y):
 
 
 def test_cpu_path_counts_no_launch_and_fn_checks():
-    _, at = _pair(40, 30, 150, 7)
+    _, at = C.pair(C.rand_pattern(40, 30, 150, 7))
     plan = spmm_plan(at)
     f = spmm_fn(plan)
     vals = torch.as_tensor(at.x[: at.nnz()])

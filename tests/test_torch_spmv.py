@@ -13,37 +13,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import rsparse_tpu as rs  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
-from bench import laplacian_5pt, rand_csc  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu.ops import spmv as sj  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
 from rsparse_tpu_torch.ops import spmv as st  # noqa: E402
 from test_torch_kernel import dia_case  # noqa: E402  (jax-free helpers)
 
 
-def _pair_dense(d):
-    aj = rs.Sprs.new_from_vec(d)
-    return aj, sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-
-
 def _lap(g=12):
-    n, p, i, x = laplacian_5pt(g)
-    return rs.Sprs(len(x), n, n, p, i, x), sprs_from_fields(n, n, p, i, x)
+    return C.pair(f"lap{g}")
 
 
-def _banded(m, n, seed, offs=(-7, -3, -1, 0, 1, 2, 5), far=6):
-    """Random values on a few diagonals (some entries dropped), plus `far`
-    stray entries off the band."""
-    rng = np.random.default_rng(seed)
-    d = np.zeros((m, n))
-    for o in offs:
-        for j in range(n):
-            if 0 <= j + o < m and rng.random() < 0.85:
-                d[j + o, j] = rng.standard_normal()
-    for _ in range(far):
-        d[rng.integers(m), rng.integers(n)] = rng.standard_normal()
-    return _pair_dense(d)
+def _banded(m, n, seed, **kw):
+    return C.pair(C.banded(m, n, seed, **kw))
 
 
 MATS = {
@@ -97,7 +79,7 @@ def test_spmv_matches_jax(name, dtype, tol, max_diags):
 
 
 def test_spmv_default_plan_and_no_launch_on_cpu():
-    aj, at = _lap(6)
+    aj, at = _lap(8)
     x = np.random.default_rng(4).standard_normal(at.n)
     before = st.dia_spmv.launches
     got = st.spmv(at, x, device="cpu")
@@ -120,7 +102,7 @@ def test_refresh_and_cached_value_refresh(max_diags):
     pj = sj.dia_plan(aj, max_diags=max_diags, dtype=np.float64)
     rt_plan = st.refresh_dia_values(pt, new)
     _same_plan(sj.refresh_dia_values(pj, new), rt_plan)
-    bt = sprs_from_fields(at.m, at.n, at.p, at.i, new)
+    bt = C.port((at.m, at.n, at.p, at.i, new))
     _same_plan(st.dia_plan(bt, max_diags=max_diags, dtype=np.float64), rt_plan)
     # the cache: same plan object for unchanged values, refreshed values
     # (same structure) after a change, equal to the JAX cache's plan
@@ -133,15 +115,6 @@ def test_refresh_and_cached_value_refresh(max_diags):
     _same_plan(sj.dia_plan_cached(aj, max_diags=max_diags), c2)
 
 
-def _same_sprs(cj, ct):
-    nz = cj.nnz()
-    assert (cj.m, cj.n) == (ct.m, ct.n)
-    np.testing.assert_array_equal(cj.p, ct.p)
-    np.testing.assert_array_equal(cj.i[:nz], ct.i[:nz])
-    xj, xt = np.asarray(cj.x)[:nz], np.asarray(ct.x)[:nz]
-    assert np.abs(xj - xt).max(initial=0.0) <= 1e-12 * max(1.0, np.abs(xj).max(initial=0.0))
-
-
 @pytest.mark.parametrize("shape", ["square", "tall", "wide"])
 @pytest.mark.parametrize("trim", [True, False])
 def test_spgemm_dia_matches_jax(shape, trim):
@@ -151,9 +124,9 @@ def test_spgemm_dia_matches_jax(shape, trim):
     bj, bt = _banded(k, n, 8, offs=(-2, 0, 3), far=0)
     cj = sj.spgemm_dia(aj, bj, trim=trim, materialize=True)
     ct = rt.ops.spmv.spgemm_dia(at, bt, trim=trim, materialize=True, device="cpu")
-    _same_sprs(cj, ct)
+    C.same_sprs(ct, cj)
     # on the CPU, materialize=None gives the same host result
-    _same_sprs(cj, st.spgemm_dia(at, bt, trim=trim, device="cpu"))
+    C.same_sprs(st.spgemm_dia(at, bt, trim=trim, device="cpu"), cj)
     want = at.to_dense_np() @ bt.to_dense_np()
     np.testing.assert_allclose(ct.to_dense_np(), want, rtol=0, atol=1e-12)
 
@@ -165,18 +138,16 @@ def test_spgemm_dia_device_resident_values():
     cj = sj.spgemm_dia(aj, aj, trim=False, materialize=True)
     ct = st.spgemm_dia(at, at, materialize=False, device="cpu")
     assert isinstance(ct.x, torch.Tensor)
-    _same_sprs(cj, ct)
+    C.same_sprs(ct, cj)
 
 
 def test_spgemm_dia_dense_pattern_falls_back():
     """More than 256 diagonals per operand: both packages route to the ESC
     multiply."""
-    p, i, x = rand_csc(300, 300, 4500, 9)
-    aj = rs.Sprs(len(x), 300, 300, p, i, x)
-    at = sprs_from_fields(300, 300, p, i, x)
+    aj, at = C.pair(C.rand_pattern(300, 300, 4500, 9))
     assert len(st.dia_plan_cached(at).offsets) > 256
-    _same_sprs(sj.spgemm_dia(aj, aj, materialize=True),
-               st.spgemm_dia(at, at, materialize=True, device="cpu"))
+    C.same_sprs(st.spgemm_dia(at, at, materialize=True, device="cpu"),
+                sj.spgemm_dia(aj, aj, materialize=True))
     with pytest.raises(ValueError):
         st.spgemm_dia(at, rt.Sprs.zeros(299, 3, 0), device="cpu")
 
@@ -228,6 +199,5 @@ def test_streams_dia_above_the_l2(g, dtype, want):
     """The kernel streams dia (evict first) only when dia, x and r together
     exceed the L2 (50 MiB here): the 2^20 Laplacian's float64 plan (50 MB
     of diagonals), not its float32 one."""
-    n, p, i, x = laplacian_5pt(g)
-    plan = st.dia_plan(sprs_from_fields(n, n, p, i, x), dtype=dtype)
+    plan = st.dia_plan(C.port(C.laplacian(g)), dtype=dtype)
     assert st.streams_dia(plan, np.dtype(dtype).itemsize, 50 * 2**20) is want

@@ -3,7 +3,8 @@ multifrontal LU's dense skeleton as one super-level), the plain version
 that follows it (`sptrsv_plain_split_multi`), and the kernel's streams
 replayed in numpy, against the whole level schedule and the JAX package.
 
-The factors: the port's LU of chip_smoke.make_matrix(24) with
+The factors: the port's LU of chip_smoke.make_matrix(24) (`torch_cases`'
+"unsym24") with
 `config.mf_min_n` lowered so that the route is the device multifrontal one
 (a dense skeleton of 109 columns); the host engine's LU of a 12 x 12
 Laplacian (no dense block); chip_smoke.synthetic_triangle(400, 70) (a
@@ -15,14 +16,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import rsparse_tpu as rs  # noqa: E402
-from rsparse_tpu.ops.sptrsv_pallas import sptrsv_pallas_multi  # noqa: E402
-from rsparse_tpu.solve import _tri_solve_multi as tri_solve_jax  # noqa: E402
 from rsparse_tpu.solve import tri_plan as tri_plan_jax  # noqa: E402
 
 import chip_smoke  # noqa: E402
 import rsparse_tpu_torch as rt  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.factor.frontal_lu import DenseSkelPlan  # noqa: E402
 from rsparse_tpu_torch.ops import sptrsv_cuda as sc  # noqa: E402
 
@@ -36,40 +34,22 @@ def mf():
     """(L, U, dense skeleton size) of the port's multifrontal LU."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(rt.config, "mf_min_n", 100)
-        a = chip_smoke.make_matrix(24, 0)
+        a = C.port("unsym24")
         s = rt.sqr(a, 1, False)
         nm = rt.lu(a, s, 1e-6, device="cpu")
     assert s._lu_route == "device_mf"
     skel = s._mf_lu_plan.skel_plan
     assert isinstance(skel, DenseSkelPlan)
-    host = lambda t: sprs_from_fields(t.n, t.n, t.p, t.i, t.x)
-    return host(nm.l), host(nm.u), skel.ns
+    return C.port(nm.l), C.port(nm.u), skel.ns
 
 
 def _host_factor(kind):
     """The host engine's LU of a 12 x 12 Laplacian: L or U."""
-    from bench import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(12)
-    a = rs.Sprs(len(x), n, n, p, i, x)
-    s = rs.sqr(a, 1, False)
-    Lp, Li, Lx, Up, Ui, Ux, _ = rs.symbolic.native.lu_numeric(
-        n, a.p, a.i[: a.nnz()], a.x[: a.nnz()], s.q, 1e-6, s.lnz, s.unz)
-    return sprs_from_fields(n, n, *((Lp, Li, Lx) if kind in (0, 2)
-                                    else (Up, Ui, Ux)))
+    return C.port(C.host_tri("lap12", kind))
 
 
 def _tri(mf, kind):
     return mf[0] if kind in (0, 2) else mf[1]
-
-
-def _jax(t):
-    return rs.Sprs(t.nnz(), t.m, t.n, t.p, t.i, np.asarray(t.x))
-
-
-def _rel(got, ref):
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
-    return np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -97,7 +77,7 @@ def test_plan_finds_the_dense_skeleton(mf, kind):
 def test_level_fields_match_jax_with_a_block(mf, kind):
     """The whole level schedule stays the JAX package's."""
     t = _tri(mf, kind)
-    tt, tj = rt.tri_plan(t, kind), tri_plan_jax(_jax(t), kind)
+    tt, tj = rt.tri_plan(t, kind), tri_plan_jax(C.jax(t), kind)
     for f in ("n", "nlev", "emax", "wmax"):
         assert getattr(tj, f) == getattr(tt, f), f
     for f in LEVEL_FIELDS:
@@ -107,7 +87,7 @@ def test_level_fields_match_jax_with_a_block(mf, kind):
 @pytest.mark.parametrize("kind", KINDS)
 def test_no_dense_block_keeps_todays_schedule(kind):
     t = _host_factor(kind)
-    tt, tj = rt.tri_plan(t, kind), tri_plan_jax(_jax(t), kind)
+    tt, tj = rt.tri_plan(t, kind), tri_plan_jax(C.jax(t), kind)
     assert tt.dense is None
     for f in LEVEL_FIELDS:
         np.testing.assert_array_equal(getattr(tj, f), getattr(tt, f), f)
@@ -123,9 +103,9 @@ def test_split_plain_f64_matches_level_loop_and_jax(mf, kind):
     got = sc.sptrsv_plain_split_multi(tx, torch.as_tensor(X), plan, kind)
     assert got.dtype == torch.float64
     ref = sc.sptrsv_plain_multi(tx, torch.as_tensor(X), plan, kind)
-    assert _rel(got.numpy(), ref.numpy()) < 1e-12
-    want = np.asarray(tri_solve_jax(_jax(t), X, kind))
-    assert _rel(got.numpy(), want) < 1e-12
+    assert C.rel(got.numpy(), ref.numpy()) < 1e-12
+    want = C.jax_answer(C.jax_sweep, t, X, kind)
+    assert C.rel(got.numpy(), want) < 1e-12
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -134,13 +114,12 @@ def test_split_plain_f32_matches_pallas(mf, kind):
     accumulation order (the TPU test's tolerance)."""
     t = _tri(mf, kind)
     X = np.random.default_rng(30 + kind).standard_normal((t.n, 4))
-    ref = np.asarray(sptrsv_pallas_multi(
-        t.x[: t.nnz()], X, tri_plan_jax(_jax(t), kind), kind), np.float64)
+    ref = C.jax_answer(C.jax_pallas_sweep, t, X, kind)
     got = sc.sptrsv_plain_split_multi(
         torch.as_tensor(t.x[: t.nnz()], dtype=torch.float32),
         torch.as_tensor(X, dtype=torch.float32), rt.tri_plan(t, kind), kind)
     assert got.dtype == torch.float32
-    assert _rel(got.double().numpy(), ref) < 5e-5
+    assert C.rel(got.double().numpy(), ref) < 5e-5
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -156,7 +135,7 @@ def test_split_plain_on_a_synthetic_block(kind):
     got = sc.sptrsv_plain_split_multi(torch.as_tensor(t.x[: t.nnz()]),
                                       torch.as_tensor(X), plan, kind)
     want = np.linalg.solve(D if kind in (0, 1) else D.T, X)
-    assert _rel(got.numpy(), want) < 1e-12
+    assert C.rel(got.numpy(), want) < 1e-12
 
 
 def _replay_kernel(tx, X, plan, kind):
@@ -248,7 +227,7 @@ def test_kernel_streams_replayed(mf, kind, case):
     X = np.random.default_rng(kind).standard_normal((t.n, 3))
     ref = sc.sptrsv_plain_multi(torch.as_tensor(tx), torch.as_tensor(X),
                                 plan, kind).numpy()
-    assert _rel(_replay_kernel(tx, X, plan, kind), ref) < 1e-12
+    assert C.rel(_replay_kernel(tx, X, plan, kind), ref) < 1e-12
 
 
 def test_remap_positions_maps_the_split(mf):

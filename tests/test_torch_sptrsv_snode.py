@@ -17,15 +17,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import rsparse_tpu as rs  # noqa: E402
-from rsparse_tpu.solve import _tri_solve_multi as tri_solve_jax  # noqa: E402
-
 import rsparse_tpu_torch as rt  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.ops import snode  # noqa: E402
 from rsparse_tpu_torch.ops import sptrsv_cuda as sc  # noqa: E402
 from rsparse_tpu_torch.symbolic import native  # noqa: E402
 from snode_patterns import (  # noqa: E402
-    PATTERNS, TASK_ENTRIES, chol as _chol, plan as _plan, spd as _spd,
+    PATTERNS, TASK_ENTRIES, chol as _chol, plan as _plan,
     triangle as _triangle)
 
 H100_SMEM = 232448  # an H100's opt-in shared memory per CTA, in bytes
@@ -170,22 +168,25 @@ def test_remapped_plan_reads_the_larger_array(kind):
     assert torch.equal(got, want)
 
 
-def _rel(got, ref):
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
-    return np.abs(got - ref).max() / max(1.0, np.abs(ref).max())
+def _X(L, kind):
+    """The right-hand sides of a triangle: 128 seeded columns."""
+    return np.random.default_rng(kind).standard_normal((L.n, 128))
 
 
-_JAX: dict = {}
+_LEVELS: dict = {}
 
 
-def _jax_solve(name, kind, X):
-    """The JAX package's f64 level sweep of the same triangle."""
-    key = (name, kind)
-    if key not in _JAX:
+def _levels(name, kind, dtype):
+    """The whole level schedule's answer on `_X`'s 128 columns, once per
+    (pattern, kind, dtype): it treats each column on its own, so its first
+    B columns are its answer at B."""
+    if (name, kind, dtype) not in _LEVELS:
         L = _triangle(name)
-        tj = rs.Sprs(L.nnz(), L.n, L.n, L.p, L.i, np.asarray(L.x))
-        _JAX[key] = np.asarray(tri_solve_jax(tj, X, kind))
-    return _JAX[key]
+        tx = torch.as_tensor(L.x[: L.nnz()], dtype=dtype)
+        _LEVELS[name, kind, dtype] = sc.sptrsv_plain_multi(
+            tx, torch.as_tensor(_X(L, kind), dtype=dtype), _plan(L, kind),
+            kind)
+    return _LEVELS[name, kind, dtype]
 
 
 @pytest.mark.parametrize("B", [32, 128])
@@ -199,13 +200,13 @@ def test_plain_snode_matches_levels_and_jax(name, kind, dtype, tol, B):
     (the TPU test's tolerance), f64 reorders sums only."""
     L = _triangle(name)
     plan = _plan(L, kind)
-    X = np.random.default_rng(kind).standard_normal((L.n, 128))
+    X = _X(L, kind)
     tx = torch.as_tensor(L.x[: L.nnz()], dtype=dtype)
     Xt = torch.as_tensor(X[:, :B], dtype=dtype)
     got = sc.sptrsv_plain_snode_multi(tx, Xt, plan, kind)
     assert got.dtype == dtype and got.shape == Xt.shape
-    assert _rel(got, sc.sptrsv_plain_multi(tx, Xt, plan, kind)) < tol
-    assert _rel(got, _jax_solve(name, kind, X)[:, :B]) < tol
+    assert C.rel(got, _levels(name, kind, dtype)[:, :B]) < tol
+    assert C.rel(got, C.jax_answer(C.jax_sweep, L, X, kind)[:, :B]) < tol
 
 
 def _replay(tx, X, plan, kind, ctas, ntile, launches, seed):
@@ -303,12 +304,12 @@ def test_ticket_scheduler_replayed(name, kind):
     L = _triangle(name)
     plan = _plan(L, kind)
     tx = torch.as_tensor(L.x[: L.nnz()])
-    X = torch.as_tensor(np.random.default_rng(4).standard_normal((L.n, 9)))
-    want = sc.sptrsv_plain_multi(tx, X, plan, kind)
+    X = torch.as_tensor(_X(L, kind)[:, :9])
+    want = _levels(name, kind, torch.float64)[:, :9]
     for seed, outs in enumerate(_replay(tx, X, plan, kind, 5, 3, 3, s)
                                 for s in range(2)):
         for x in outs:
-            assert _rel(x, want) < 1e-12, seed
+            assert C.rel(x, want) < 1e-12, seed
 
 
 def _cell_plans():
@@ -318,10 +319,10 @@ def _cell_plans():
     from benchmark.generators import convdiff5, poisson5
 
     n, p, i, x = poisson5.make({"grid": 256}, None)
-    L = _chol(_spd(n, p, i, x), 1)
+    L = _chol(C.port((n, n, p, i, x)), 1)
     n2, p2, i2, x2 = convdiff5.make({"grid": 128, "peclet": [0.5, 0.25]},
                                     None)
-    a = rt.Sprs(len(x2), n2, n2, p2, i2, np.asarray(x2, np.float64))
+    a = C.port((n2, n2, p2, i2, x2))
     s = rt.sqr(a, 1, False)
     Lp, Li, Lx, Up, Ui, Ux, _ = native.lu_numeric(
         n2, a.p, a.i, a.x, s.q, 1e-6, s.lnz, s.unz)

@@ -13,19 +13,7 @@ torch = pytest.importorskip("torch")
 import rsparse_tpu_torch as rt  # noqa: E402
 from rsparse_tpu_torch import solve, utils  # noqa: E402
 from rsparse_tpu_torch.utils import phase_timer, recording, spans  # noqa: E402
-
-
-def _grid(g, wind=0.0):
-    """The g x g 5-point operator, 4 on the diagonal and -1 -+ wind to the
-    neighbours (wind 0: the SPD Laplacian)."""
-    n = g * g
-    d = 4.0 * np.eye(n)
-    for k in range(n):
-        r, c = divmod(k, g)
-        for dr, dc, s in ((1, 0, 1), (-1, 0, -1), (0, 1, 1), (0, -1, -1)):
-            if 0 <= r + dr < g and 0 <= c + dc < g:
-                d[k, k + dr * g + dc] = -1.0 - s * wind
-    return rt.Sprs.new_from_vec(d.tolist())
+import torch_cases as C  # noqa: E402
 
 
 def _names(recs):
@@ -135,11 +123,11 @@ def test_serve_handle_spans_and_readbacks(monkeypatch, family, route):
     if route == "device_mf":
         monkeypatch.setattr(rt.config, "mf_min_n", 100)
     if family == "cholsol":
-        a = _grid(12)
+        a = C.port("lap12")
         build = lambda: rt.cholsol_serve(a, 1, device="cpu")  # noqa: E731
         keys = ["analysis", "factor", "handle"]
     else:
-        a = _grid(12, wind=0.3)
+        a = C.port("unsym12")
         order = 1 if route == "device_mf" else -1  # the level LU's order
         build = lambda: rt.lusol_serve(a, order, 1e-6, device="cpu")  # noqa: E731
         keys = ["analysis", "factor", "probe", "handle"]
@@ -186,7 +174,7 @@ def test_serve_handle_spans_and_readbacks(monkeypatch, family, route):
 
 
 def test_build_seconds_without_the_recorder():
-    a = _grid(6)
+    a = C.port("lap8")
     h = rt.cholsol_serve(a, 1, device="cpu")
     assert list(h.build_seconds) == ["analysis", "factor", "handle"]
     assert all(v >= 0 for v in h.build_seconds.values())
@@ -197,7 +185,7 @@ def test_build_seconds_without_the_recorder():
 
 def test_registry_keeps_every_span():
     utils.reset_metrics()
-    a = _grid(6)
+    a = C.port("lap8")
     h = rt.cholsol_serve(a, 1, device="cpu")
     h(np.ones((a.n, 2)))
     got = utils.get_metrics()

@@ -13,34 +13,19 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import rsparse_tpu as rs  # noqa: E402
-from rsparse_tpu.symbolic import native  # noqa: E402
 
 import rsparse_tpu_torch as rt  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields  # noqa: E402
+import torch_cases as C  # noqa: E402
 
 KINDS = [("lsolve", "l"), ("ltsolve", "l"), ("usolve", "u"), ("utsolve", "u")]
 
 
-def _factors():
-    """Exact L and U (host engine) of a seeded sparse nonsymmetric matrix,
-    in both packages."""
-    rng = np.random.default_rng(11)
-    n = 60
-    d = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.1)
-    np.fill_diagonal(d, np.abs(d).sum(1) + 1.0)
-    aj = rs.Sprs.new_from_vec(d)
-    sj = rs.sqr(aj, 1, False)
-    nz = aj.nnz()
-    Lp, Li, Lx, Up, Ui, Ux, _ = native.lu_numeric(
-        n, aj.p, aj.i[:nz], aj.x[:nz], sj.q, 1e-6, sj.lnz, sj.unz)
-    return {key: (rs.Sprs(len(x), n, n, p, i, x),
-                  sprs_from_fields(n, n, p, i, x))
-            for key, (p, i, x) in (("l", (Lp, Li, Lx)), ("u", (Up, Ui, Ux)))}
-
-
 @pytest.fixture(scope="module")
 def factors():
-    return _factors()
+    """Exact L and U (host engine) of a seeded sparse nonsymmetric matrix,
+    in both packages."""
+    L, U = C.host_lu("rand50")
+    return {"l": C.pair(L), "u": C.pair(U)}
 
 
 @pytest.mark.parametrize("name,which", KINDS)
@@ -71,7 +56,7 @@ def test_factor_values_as_a_tensor(factors, name, which, monkeypatch):
     _, tt = factors[which]
     b = np.random.default_rng(5).standard_normal(tt.n)
     want = getattr(rt, name)(tt, b.copy(), device="cpu")
-    tv = sprs_from_fields(tt.n, tt.n, tt.p, tt.i, tt.x)
+    tv = C.port(tt)
     tv.x = torch.as_tensor(tt.x)
     np.testing.assert_allclose(getattr(rt, name)(tv, b.copy(), device="cpu"),
                                want, rtol=0, atol=1e-14)

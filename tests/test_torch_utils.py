@@ -19,49 +19,9 @@ import rsparse_tpu as rs  # noqa: E402
 import rsparse_tpu.utils as jutils  # noqa: E402
 
 import rsparse_tpu_torch as rt  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch import utils  # noqa: E402
-from rsparse_tpu_torch.convert import sprs_from_fields, symb_from_fields  # noqa: E402
 from rsparse_tpu_torch.ops import cuda_build  # noqa: E402
-
-
-def _laplacian(g):
-    from bench import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(g)
-    return rs.Sprs(len(x), n, n, p, i, x)
-
-
-def _unsym(n, seed):
-    rng = np.random.default_rng(seed)
-    d = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.2)
-    np.fill_diagonal(d, np.abs(d).sum(1) + 1.0)
-    return rs.Sprs.new_from_vec(d.tolist())
-
-
-def _tall(m, n, seed):
-    rng = np.random.default_rng(seed)
-    d = rng.standard_normal((m, n)) * (rng.random((m, n)) < 0.15)
-    d[np.arange(n), np.arange(n)] += 3.0
-    return rs.Sprs.new_from_vec(d.tolist())
-
-
-def _port(aj):
-    return sprs_from_fields(aj.m, aj.n, aj.p, aj.i, aj.x)
-
-
-def _symb(sj):
-    return symb_from_fields(q=sj.q, pinv=sj.pinv, parent=sj.parent, cp=sj.cp,
-                            lnz=sj.lnz, unz=sj.unz, m2=sj.m2)
-
-
-def _rel(x, want):
-    x, want = np.asarray(x, np.float64), np.asarray(want, np.float64)
-    return np.abs(x - want).max() / max(1.0, np.abs(want).max())
-
-
-def _mf(monkeypatch, n=100):
-    monkeypatch.setattr(rs.config, "mf_min_n", n)
-    monkeypatch.setattr(rt.config, "mf_min_n", n)
 
 
 # -- the metrics registry ----------------------------------------------------
@@ -107,19 +67,19 @@ def test_solvers_populate_metrics(monkeypatch, solver, route):
     its calls and work sizes, on both device routes; beside them only the
     port's own spans of that route."""
     if route == "mf":
-        _mf(monkeypatch)
+        C.mf(monkeypatch)
     if solver == "cholsol":
-        aj, args = _laplacian(12), (1,)
+        case, args = "lap12", (1,)
     else:  # natural order on the level route: the JAX level LU takes it
-        aj, args = _unsym(150 if route == "mf" else 50, 3), (
-            (1 if route == "mf" else -1), 1e-6)
-    at = _port(aj)
+        case, args = ("unsym12", (1, 1e-6)) if route == "mf" else (
+            "rand50", (-1, 1e-6))
+    aj, at = C.pair(case)
     b = np.random.default_rng(1).standard_normal(aj.n)
     jutils.reset_metrics()
     xj = getattr(rs, solver)(aj, list(b), *args)
     utils.reset_metrics()
     xt = getattr(rt, solver)(at, list(b), *args, device="cpu")
-    assert _rel(xt, xj) <= 1e-10
+    assert C.rel(xt, xj) <= 1e-10
     got, want = _phases(utils), _phases(jutils)
     assert {k: got.get(k) for k in want} == want
     assert set(got) - set(want) == PORT_ONLY[route]
@@ -173,21 +133,12 @@ def _analysis(kind, aj):
     return rs.sqr(aj, 1 if kind == "lu" else 2, kind == "qr")
 
 
-def _same_sprs(t1, t2):
-    assert (t1.nzmax, t1.m, t1.n) == (t2.nzmax, t2.m, t2.n)
-    for f in ("p", "i", "x"):
-        assert np.array_equal(np.asarray(getattr(t1, f))[: t1.nnz() if f != "p" else None],
-                              np.asarray(getattr(t2, f))[: t2.nnz() if f != "p" else None])
-
-
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 @pytest.mark.parametrize("kind", ["chol", "lu", "qr"])
 def test_factor_checkpoint_between_packages(tmp_path, kind, direction):
-    aj = {"chol": lambda: _laplacian(12), "lu": lambda: _unsym(80, 5),
-          "qr": lambda: _tall(90, 60, 6)}[kind]()
-    at = _port(aj)
+    aj, at = C.pair({"chol": "lap12", "lu": "rand50", "qr": "tall60x40"}[kind])
     sj = _analysis(kind, aj)
-    st = _symb(sj)
+    st = C.symb(sj)
     src, dst = (rs, rt) if direction == "jax_to_port" else (rt, rs)
     a_src, s_src = (aj, sj) if src is rs else (at, st)
     a_dst, s_dst = (at, st) if dst is rt else (aj, sj)
@@ -201,16 +152,16 @@ def test_factor_checkpoint_between_packages(tmp_path, kind, direction):
     assert ("pinv" in keys) == (kind == "lu") and ("beta" in keys) == (kind == "qr")
     nm2 = (utils if dst is rt else jutils).load_factor(path)
     assert isinstance(nm2, dst.Nmrc)
-    _same_sprs(nm2.l, nm.l)
+    C.same_sprs(nm2.l, nm.l, 0.0, nzmax=True)
     if kind != "chol":
-        _same_sprs(nm2.u, nm.u)
+        C.same_sprs(nm2.u, nm.u, 0.0, nzmax=True)
     if kind == "lu":
         assert np.array_equal(nm2.pinv, nm.pinv)
     if kind == "qr":
         assert np.array_equal(nm2.b, nm.b)
     b = np.random.default_rng(2).standard_normal(aj.m)
     x = _solve(dst, kind, nm2, s_dst, a_dst, b)
-    assert _rel(x, _solve(src, kind, nm, s_src, a_src, b)) <= 1e-12
+    assert C.rel(x, _solve(src, kind, nm, s_src, a_src, b)) <= 1e-12
     resid = aj.to_dense_np() @ x - b
     if kind == "qr":  # least squares: the normal equations' residual
         resid = aj.to_dense_np().T @ resid
@@ -224,9 +175,8 @@ def test_symbolic_checkpoint_between_packages(monkeypatch, tmp_path, direction,
     """A Symb saved by one package drives the other's cholsol (its plans
     built again at first use), giving the first package's x."""
     if route == "mf":
-        _mf(monkeypatch)
-    aj = _laplacian(14)
-    at = _port(aj)
+        C.mf(monkeypatch)
+    aj, at = C.pair("lap12")
     src, dst = (rs, rt) if direction == "jax_to_port" else (rt, rs)
     s = src.schol(aj if src is rs else at, 1)
     path = str(tmp_path / "symb.npz")
@@ -243,7 +193,7 @@ def test_symbolic_checkpoint_between_packages(monkeypatch, tmp_path, direction,
     b = np.random.default_rng(3).standard_normal(aj.n)
     x2 = dst.cholsol(aj if dst is rs else at, b.copy(), 1, sym=s2, **_kw(dst))
     x = src.cholsol(aj if src is rs else at, b.copy(), 1, sym=s, **_kw(src))
-    assert _rel(x2, x) <= 1e-12
+    assert C.rel(x2, x) <= 1e-12
     if dst is rt:
         assert s2._chol_route == ("device_mf" if route == "mf" else "device_level")
         assert (getattr(s2, "_mf_plan", None) is not None) == (route == "mf")
@@ -255,12 +205,11 @@ def test_symbolic_checkpoint_between_packages(monkeypatch, tmp_path, direction,
 def test_profile_trace_writes_a_trace(tmp_path):
     from rsparse_tpu_torch.ops.spmv_general import spmv_general
 
-    aj = _laplacian(6)
-    x = np.arange(aj.n, dtype=np.float64)
+    x = np.arange(64, dtype=np.float64)
     logdir = str(tmp_path / "trace")
     with utils.profile_trace(logdir):
-        r = spmv_general(_port(aj), x, device="cpu")
-    assert np.allclose(r.numpy(), aj.to_dense_np() @ x, atol=1e-4)
+        r = spmv_general(C.port("lap8"), x, device="cpu")
+    assert np.allclose(r.numpy(), C.dense("lap8") @ x, atol=1e-4)
     files = [f for f in os.listdir(logdir) if f.endswith(".json")]
     assert files and os.path.getsize(os.path.join(logdir, files[0])) > 0
 
@@ -268,7 +217,7 @@ def test_profile_trace_writes_a_trace(tmp_path):
 def test_sanitize_on_the_cpu():
     """Inside sanitize the CPU paths (the plain versions) give bit-equal
     results; the mode is scoped to the block."""
-    at = _port(_laplacian(8))
+    at = C.port("lap8")
     X = torch.as_tensor(np.random.default_rng(4).standard_normal((at.n, 3)))
     want = rt.gaxpy_multi(at, X, device="cpu")
     assert not cuda_build.sanitizing()
@@ -300,7 +249,7 @@ def test_sanitize_checks_the_sweep_streams(kind):
     kernel's stream."""
     from rsparse_tpu_torch.ops import sptrsv_cuda
 
-    at = _port(_unsym(50, 9))
+    at = C.port("rand50")
     nm = rt.lu(at, rt.sqr(at, -1, False), 1e-6, device="cpu")
     t = nm.l if kind in (0, 2) else nm.u
     plan = rt.tri_plan(t, kind)

@@ -2,8 +2,9 @@
 `qrsol_vals`: K systems of one sparsity pattern in the torch package
 against the JAX package's on the same seeded inputs, against the port's
 per-instance `cholsol`/`lusol`/`qrsol`, and against numpy's dense solves,
-at n <= 400 (`mf_min_n` patched down in both packages to force the
-multifrontal routes). The JAX answers are computed once per module.
+at n <= 200 (`mf_min_n` patched down in both packages to force the
+multifrontal routes), on `torch_cases`' inputs; the JAX package's answers
+through `torch_cases.jax_answer`.
 
 Tolerances: the drivers 1e-10 relative (Cholesky, LU) and 1e-9 (QR) to
 the JAX package and to the per-instance drivers, both f64 routes; the
@@ -18,10 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import rsparse_tpu as rs  # noqa: E402
-
 import rsparse_tpu_torch as rt  # noqa: E402
 import rsparse_tpu_torch.solve as solve_torch  # noqa: E402
+import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.factor import frontal as fchol  # noqa: E402
 from rsparse_tpu_torch.factor import frontal_lu as flu  # noqa: E402
 from rsparse_tpu_torch.factor import frontal_qr as fqr  # noqa: E402
@@ -36,44 +36,21 @@ K = 5
 MF_MIN_N = 100
 
 
-def _rel(x, want):
-    x, want = np.asarray(x, np.float64), np.asarray(want, np.float64)
-    return np.abs(x - want).max() / max(1.0, np.abs(want).max())
-
-
-def _jax(a):
-    return rs.Sprs(a.nnz(), a.m, a.n, a.p, a.i[: a.nnz()], a.x[: a.nnz()])
-
-
-def _diag(a):
-    nz = a.nnz()
-    return a.i[:nz] == col_ids(a.p, a.n)
-
-
-def _lap(g=20):
-    from chip_smoke import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(g)
-    return rt.Sprs(len(x), n, n, p, i, x)
-
-
 def _chol_case():
-    """The Laplacian (n = 400), diagonals scaled by 1 + 0.25k (the chip
-    smoke's family at a test size)."""
-    a = _lap()
+    """The 12 x 12 Laplacian (n = 144), diagonals scaled by 1 + 0.25k (the
+    chip smoke's family at a test size)."""
+    a = C.port("lap12")
     AxK = np.tile(a.x[: a.nnz()], (K, 1))
-    AxK[:, _diag(a)] *= (1.0 + 0.25 * np.arange(K))[:, None]
+    AxK[:, C.diag_mask(a)] *= (1.0 + 0.25 * np.arange(K))[:, None]
     return a, AxK
 
 
 def _lu_case():
-    """chip_smoke.make_matrix(20) (nonsymmetric, n = 400): instances
-    0..K-2 with diagonals scaled by 1 + 0.2k, the last with its
+    """The chip smoke's nonsymmetric matrix at grid 12 (n = 144):
+    instances 0..K-2 with diagonals scaled by 1 + 0.2k, the last with its
     off-diagonals redrawn (other pivots)."""
-    from chip_smoke import make_matrix
-
-    a = make_matrix(20, 0)
-    d = _diag(a)
+    a = C.port("unsym12")
+    d = C.diag_mask(a)
     AxK = np.tile(a.x[: a.nnz()], (K, 1))
     AxK[:, d] *= (1.0 + 0.2 * np.arange(K))[:, None]
     rng = np.random.default_rng(7)
@@ -82,11 +59,9 @@ def _lu_case():
 
 
 def _qr_case(branch):
-    """[A5; 0.1 I] (m = 288, n = 144) or its transpose, values scaled by
-    1 + 0.1k."""
-    from chip_smoke import qr_matrix
-
-    a = qr_matrix(0, 12)
+    """[A5; 0.1 I] at grid 10 (m = 200, n = 100) or its transpose, values
+    scaled by 1 + 0.1k."""
+    a = C.port("grid_ls10")
     if branch == "mn":
         a = rt.transpose(a, device="cpu")
     AxK = np.asarray(a.x[: a.nnz()]) * (1.0 + 0.1 * np.arange(K))[:, None]
@@ -104,28 +79,10 @@ def _B(rows, seed):
 
 @pytest.fixture(autouse=True)
 def _mf(monkeypatch):
-    monkeypatch.setattr(rs.config, "mf_min_n", MF_MIN_N)
-    monkeypatch.setattr(rt.config, "mf_min_n", MF_MIN_N)
+    C.mf(monkeypatch, MF_MIN_N)
 
 
-@pytest.fixture(scope="module")
-def jax_answers():
-    """The JAX package's *_vals on each case, computed once."""
-    old = rs.config.mf_min_n
-    rs.config.mf_min_n = MF_MIN_N
-    try:
-        out = {}
-        a, AxK = _chol_case()
-        out["chol"] = np.asarray(rs.cholsol_vals(_jax(a), AxK, _B(a.n, 1), 1))
-        a, AxK = _lu_case()
-        out["lu"] = np.asarray(rs.lusol_vals(_jax(a), AxK, _B(a.n, 2), 1,
-                                             1e-6))
-        for br in ("ls", "mn"):
-            a, AxK = _qr_case(br)
-            out[br] = np.asarray(rs.qrsol_vals(_jax(a), AxK, _B(a.m, 3), 2))
-        return out
-    finally:
-        rs.config.mf_min_n = old
+QR_CASE = {"ls": "grid_ls10", "mn": "grid_ls10t"}
 
 
 def _per_instance(driver, a, AxK, B, **kw):
@@ -143,42 +100,44 @@ def _per_instance(driver, a, AxK, B, **kw):
 # ---------------------------------------------------------------------------
 
 
-def test_cholsol_vals_matches_jax_and_cholsol(jax_answers):
+def test_cholsol_vals_matches_jax_and_cholsol():
     a, AxK = _chol_case()
     B = _B(a.n, 1)
     s = rt.schol(a, 1)
     X = rt.cholsol_vals(a, AxK, B, 1, sym=s, device="cpu")
     assert X.shape == (K, a.n) and X.dtype == np.float64
     assert s._vals_route == ("device_mf", 0)
-    assert _rel(X, jax_answers["chol"]) <= 1e-10
-    assert _rel(X, _per_instance(rt.cholsol, a, AxK, B, order=1)) <= 1e-10
+    assert C.rel(X, C.jax_answer("cholsol_vals", "lap12", AxK, B, 1)) <= 1e-10
+    assert C.rel(X, _per_instance(rt.cholsol, a, AxK, B, order=1)) <= 1e-10
     k = K - 1
     d = a.to_dense_np()
     d[np.arange(a.n), np.arange(a.n)] *= 1.0 + 0.25 * k
-    assert _rel(X[k], np.linalg.solve(d, B[k])) <= 1e-10
+    assert C.rel(X[k], np.linalg.solve(d, B[k])) <= 1e-10
 
 
-def test_lusol_vals_matches_jax_and_lusol(jax_answers):
+def test_lusol_vals_matches_jax_and_lusol():
     a, AxK = _lu_case()
     B = _B(a.n, 2)
     s = rt.sqr(a, 1, False)
     X = rt.lusol_vals(a, AxK, B, 1, 1e-6, sym=s, device="cpu")
     assert s._vals_route == ("device_mf", 0)
-    assert _rel(X, jax_answers["lu"]) <= 1e-10
-    assert _rel(X, _per_instance(rt.lusol, a, AxK, B, order=1,
+    assert C.rel(X, C.jax_answer("lusol_vals", "unsym12", AxK, B, 1,
+                                     1e-6)) <= 1e-10
+    assert C.rel(X, _per_instance(rt.lusol, a, AxK, B, order=1,
                                  tol=1e-6)) <= 1e-10
 
 
 @pytest.mark.parametrize("branch", ["ls", "mn"])
-def test_qrsol_vals_matches_jax_and_qrsol(jax_answers, branch):
+def test_qrsol_vals_matches_jax_and_qrsol(branch):
     a, AxK = _qr_case(branch)
     B = _B(a.m, 3)
     s = _qr_sym(a)
     X = rt.qrsol_vals(a, AxK, B, 2, sym=s, device="cpu")
     assert X.shape == (K, a.n)
     assert s._vals_route == ("device_mf", 0)
-    assert _rel(X, jax_answers[branch]) <= 1e-9
-    assert _rel(X, _per_instance(rt.qrsol, a, AxK, B, order=2)) <= 1e-9
+    want = C.jax_answer("qrsol_vals", QR_CASE[branch], AxK, B, 2)
+    assert C.rel(X, want) <= 1e-9
+    assert C.rel(X, _per_instance(rt.qrsol, a, AxK, B, order=2)) <= 1e-9
 
 
 # ---------------------------------------------------------------------------
@@ -222,15 +181,15 @@ def test_vals_new_values_no_stale_cache(driver):
     B = _B(a.m, 5)
     X1 = _call(driver, a, AxK, B, s)
     AxK2 = AxK * 1.25
-    AxK2[:, _diag(a) if a.m == a.n else slice(None)] *= 1.1
+    AxK2[:, C.diag_mask(a) if a.m == a.n else slice(None)] *= 1.1
     X2 = _call(driver, a, AxK2, B, s)
     fn = {"chol": lambda ak, b, device: rt.cholsol(ak, b, 1, device=device),
           "lu": lambda ak, b, device: rt.lusol(ak, b, 1, 1e-6, device=device),
           }.get(driver, lambda ak, b, device: rt.qrsol(ak, b, 2,
                                                        device=device))
     want = _per_instance(fn, a, AxK2, B)
-    assert _rel(X2, want) <= 1e-9
-    assert _rel(X1, X2) > 1e-3
+    assert C.rel(X2, want) <= 1e-9
+    assert C.rel(X1, X2) > 1e-3
 
 
 @pytest.mark.parametrize("route", ["mf", "per_instance"])
@@ -239,8 +198,8 @@ def test_cholsol_vals_npd_names_all_instances(monkeypatch, route):
         monkeypatch.setattr(rt.config, "mf_min_n", 10**9)
     a, AxK = _chol_case()
     bad = AxK.copy()
-    bad[1, _diag(a)] = -5.0
-    bad[3, _diag(a)] = -5.0
+    bad[1, C.diag_mask(a)] = -5.0
+    bad[3, C.diag_mask(a)] = -5.0
     s = rt.schol(a, 1)
     with pytest.raises(rt.NotPositiveDefiniteError,
                        match=r"instances \[1, 3\] are not positive definite"):
@@ -257,12 +216,12 @@ def test_lusol_vals_pivot_instance_in_batch():
     s = rt.sqr(a, 1, False)
     X = rt.lusol_vals(a, AxK, B, 1, 1e-6, sym=s, device="cpu")
     bad = AxK.copy()
-    bad[2, np.nonzero(_diag(a))[0][7]] = 0.0
+    bad[2, np.nonzero(C.diag_mask(a))[0][7]] = 0.0
     XB = rt.lusol_vals(a, bad, B, 1, 1e-6, sym=s, device="cpu")
     nz = a.nnz()
     d = np.zeros((a.n, a.n))
     d[a.i[:nz], col_ids(a.p, a.n)] = bad[2]
-    assert _rel(XB[2], np.linalg.solve(d, B[2])) <= 1e-10
+    assert C.rel(XB[2], np.linalg.solve(d, B[2])) <= 1e-10
     np.testing.assert_allclose(XB[[0, 1, 3, 4]], X[[0, 1, 3, 4]], rtol=0,
                                atol=1e-12 * np.abs(X).max())
 
@@ -282,7 +241,7 @@ def test_vals_per_instance_tiers(monkeypatch, driver, tier):
     a2, AxK2, s2 = _case(driver)
     X = _call(driver, a2, AxK2, B, s2)
     assert s2._vals_route == ("per_instance", K)
-    assert _rel(X, want) <= 1e-9
+    assert C.rel(X, want) <= 1e-9
 
 
 @pytest.mark.parametrize("driver", ["chol", "lu", "qr"])
@@ -302,31 +261,12 @@ def test_vals_shape_errors(driver):
             _call(driver, rect, AxK, B, None)
 
 
-def _dup_spd(n, seed):
-    """An SPD matrix with duplicate (i, j) entries (`Trpl.sum_dupl` keeps
-    the sum in the last slot, zeros in the others)."""
-    import rsparse_tpu_torch.data as rd
-
-    rng = np.random.default_rng(seed)
-    t = rd.Trpl()
-    for i in range(n):
-        t.append(i, i, 10.0)
-        t.append(i, i, 2.5)
-    for _ in range(3 * n):
-        i, j = int(rng.integers(n)), int(rng.integers(n))
-        v = 0.3 * rng.standard_normal()
-        t.append(min(i, j), max(i, j), v)
-        t.append(max(i, j), min(i, j), v)
-    t.sum_dupl()
-    return t.to_sprs()
-
-
 @pytest.mark.parametrize("driver", ["chol", "lu"])
 def test_vals_duplicate_entries(driver):
-    a = _dup_spd(150, 4)
+    a = C.port("dup150")
     nz, n = a.nnz(), a.n
     AxK = np.tile(np.asarray(a.x[:nz]), (3, 1))
-    AxK[:, _diag(a)] *= (1.0 + 0.5 * np.arange(3))[:, None]
+    AxK[:, C.diag_mask(a)] *= (1.0 + 0.5 * np.arange(3))[:, None]
     B = np.random.default_rng(5).standard_normal((3, n))
     if driver == "chol":
         s = rt.schol(a, 0)
@@ -340,7 +280,7 @@ def test_vals_duplicate_entries(driver):
         np.add.at(d, (a.i[:nz], col_ids(a.p, n)), AxK[k])
         if driver == "chol":  # chol reads triu (reference)
             d = np.triu(d) + np.triu(d, 1).T
-        assert _rel(X[k], np.linalg.solve(d, B[k])) <= 1e-10
+        assert C.rel(X[k], np.linalg.solve(d, B[k])) <= 1e-10
 
 
 # ---------------------------------------------------------------------------
@@ -394,17 +334,9 @@ def test_cholsol_serve_handle_survives_vals():
 # ---------------------------------------------------------------------------
 
 
-def _close(got, want, tol=1e-12):
-    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
-    assert got.shape == want.shape
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    assert err <= tol * max(1.0, float(want.abs().max()) if want.numel()
-                            else 1.0)
-
-
 def _tree_close(got, want, k):
     if isinstance(got, torch.Tensor):
-        _close(got[k], want)
+        C.close(got[k], want)
     elif isinstance(got, (tuple, list)):
         assert len(got) == len(want)
         for g, w in zip(got, want):
@@ -439,10 +371,10 @@ def test_batched_chol_core_matches_single(monkeypatch, tail):
     Y = fchol._solve_mf_dev(mfp, X, tree)
     for k in range(K):
         L1, d1, t1 = fchol._chol_mf_values(Cx[k].contiguous(), mfp)
-        _close(Lx[k], L1)
-        _close(torch.stack(dmins)[:, k], torch.stack(d1))
+        C.close(Lx[k], L1)
+        C.close(torch.stack(dmins)[:, k], torch.stack(d1))
         _tree_close(tree, t1, k)
-        _close(Y[k], fchol._solve_mf_dev(mfp, X[k], t1))
+        C.close(Y[k], fchol._solve_mf_dev(mfp, X[k], t1))
 
 
 def test_batched_chol_pivots_per_instance():
@@ -453,14 +385,14 @@ def test_batched_chol_pivots_per_instance():
     mfp = solve_torch._chol_mf_plan(a, s)
     perm = solve_torch._chol_oneshot_maps(a, s, "cpu")[0]
     bad = AxK.copy()
-    bad[2, _diag(a)] = -1.0
+    bad[2, C.diag_mask(a)] = -1.0
     L0, _, _ = fchol._chol_mf_values(torch.as_tensor(AxK[:, perm]), mfp)
     L1, dmins, _ = fchol._chol_mf_values(torch.as_tensor(bad[:, perm]), mfp)
     dmin = torch.stack(dmins).amin(0)
     assert dmin.shape == (K,)
     assert [bool(v > 0) for v in dmin] == [True, True, False, True, True]
     keep = [0, 1, 3, 4]
-    _close(L1[keep], L0[keep], 0.0)
+    C.close(L1[keep], L0[keep], 0.0)
 
 
 @pytest.mark.parametrize("skeleton", ["dense", "levels"])
@@ -475,7 +407,7 @@ def test_batched_lu_core_matches_single(monkeypatch, skeleton):
         monkeypatch.setattr(flu, "MAX_DEPTH", 0)
     a, AxK = _lu_case()
     AxK = AxK.copy()
-    AxK[:, _diag(a)] *= 3.0  # static pivots the level LU accepts
+    AxK[:, C.diag_mask(a)] *= 3.0  # static pivots the level LU accepts
     s = rt.sqr(a, 1, False)
     plan = solve_torch._lu_mf_plan(rt.Sprs(a.nnz(), a.n, a.n, a.p,
                                            a.i[: a.nnz()], AxK[0]), s)
@@ -494,9 +426,9 @@ def test_batched_lu_core_matches_single(monkeypatch, skeleton):
     for k in range(K):
         L1, U1, m1, b1, c1, p1 = flu._lu_mf_values(Ax[k].contiguous(), plan,
                                                    1e-6)
-        _close(Lx[k], L1)
-        _close(Ux[k], U1)
-        _close(torch.stack(mg)[:, k], torch.stack(m1))
+        C.close(Lx[k], L1)
+        C.close(Ux[k], U1)
+        C.close(torch.stack(mg)[:, k], torch.stack(m1))
         assert torch.equal(torch.stack(bd)[:, k], torch.stack(b1))
         assert all(torch.equal(p[k], q) for p, q in zip(perms, p1))
         elim, c1, _ = flu._finalize_cache(
@@ -504,7 +436,7 @@ def test_batched_lu_core_matches_single(monkeypatch, skeleton):
         einv = np.empty(a.n, np.int64)
         einv[elim] = np.arange(a.n)
         np.testing.assert_array_equal(pinK[k], einv[plan.row_pinv])
-        _close(Y[k], flu._solve_lu_mf_dev(plan, X[k], c1))
+        C.close(Y[k], flu._solve_lu_mf_dev(plan, X[k], c1))
 
 
 @pytest.mark.parametrize("branch", ["ls", "mn"])
@@ -526,21 +458,19 @@ def test_batched_qr_core_matches_single(branch):
     got = solve(fa, s, plan, B, (qs, Fx, Rx))
     for k in range(K):
         fqr._qr_mf_factor(Fx[k].contiguous(), plan)
-        _close(Rx[k], plan.__dict__["_cache_rx"])
+        C.close(Rx[k], plan.__dict__["_cache_rx"])
         for Q, Q1 in zip(qs, plan.__dict__["_cache_q"]):
-            _close(Q[k], Q1)
+            C.close(Q[k], Q1)
         one = solve(fa, s, plan, B[k])
         for g, w in zip(got, one):
-            _close(np.asarray(g)[k], np.asarray(w), 1e-10)
+            C.close(np.asarray(g)[k], np.asarray(w), 1e-10)
 
 
 @pytest.mark.parametrize("kind", [0, 1, 2, 3])
 def test_plain_sweep_instances(kind):
     """`sptrsv_plain_multi` with [K, L] values and X [K, n, B] against K
     one-instance calls (the plan with its dense block)."""
-    from chip_smoke import make_matrix
-
-    a = make_matrix(16, 0)
+    a = C.port("unsym12")
     s = rt.sqr(a, 1, False)
     nm = rt.lu(a, s, 1e-6, device="cpu")
     t = nm.l if kind in (0, 2) else nm.u
@@ -551,7 +481,7 @@ def test_plain_sweep_instances(kind):
     X = torch.as_tensor(rng.standard_normal((K, t.n, 3)))
     got = sptrsv_plain_multi(tx, X, plan, kind)
     for k in range(K):
-        _close(got[k], sptrsv_plain_multi(tx[k].contiguous(), X[k], plan,
+        C.close(got[k], sptrsv_plain_multi(tx[k].contiguous(), X[k], plan,
                                           kind))
     with pytest.raises(ValueError, match="X must be"):
         sptrsv_plain_multi(tx, X[0], plan, kind)
@@ -572,5 +502,5 @@ def test_refine_per_instance_matches_single():
     for k in range(K):
         x1, r1 = solve_torch._refine(lambda R: P[k] @ R,
                                      lambda X: B[k] - A[k] @ X, B[k], 6)
-        _close(X[k], x1, 0.0)
+        C.close(X[k], x1, 0.0)
         assert r1 == rmax[k]

@@ -16,7 +16,11 @@ process per D and suite ("jax_parallel", "jax_vals", "jax_halo", rank
 0, no store) on the conftest's virtual 8-device CPU mesh, so that its
 compiles run beside each other and beside the ranks. `Ranks` starts and
 collects either kind; a process that fails, or outlives its time limit,
-fails the test with the processes' stderr.
+fails the test with the processes' stderr. Nothing here sleeps or polls:
+the first test to read a suite's results waits in `Popen.wait` for its
+processes, and for a JAX suite that wait is the JAX package compiling
+each call for its mesh (the longest process of a D by far; the port's
+ranks take a few seconds).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import sys
 import time
 
 import numpy as np
+
+import torch_cases as C
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -84,24 +90,9 @@ def halo_tables(p) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Seeded inputs (numpy fields: (m, n, p, i, x))
+# Seeded inputs (numpy fields: (m, n, p, i, x); the Laplacians are
+# torch_cases.laplacian's)
 # ---------------------------------------------------------------------------
-
-
-def _csc(d: np.ndarray):
-    """CSC fields of a dense matrix's nonzeros (rows ascending)."""
-    m, n = d.shape
-    c, r = np.nonzero(d.T)
-    p = np.zeros(n + 1, np.int64)
-    np.cumsum(np.bincount(c, minlength=n), out=p[1:])
-    return m, n, p, r.astype(np.int64), d[r, c]
-
-
-def lap(g: int):
-    from bench import laplacian_5pt
-
-    n, p, i, x = laplacian_5pt(g)
-    return n, n, p, i, x
 
 
 def spd(n: int, seed: int, extra: int = 3):
@@ -116,7 +107,7 @@ def spd(n: int, seed: int, extra: int = 3):
     d[c, r] += v
     np.fill_diagonal(d, 0.0)
     np.fill_diagonal(d, np.abs(d).sum(1) + 1.0 + rng.random(n))
-    return _csc(d)
+    return C.csc(d)
 
 
 def general(m: int, n: int, seed: int, nnz: int):
@@ -127,7 +118,7 @@ def general(m: int, n: int, seed: int, nnz: int):
     d[np.arange(k), np.arange(k)] = 5.0 + rng.random(k)
     d[rng.integers(0, m, nnz), rng.integers(0, n, nnz)] += \
         rng.standard_normal(nnz)
-    return _csc(d)
+    return C.csc(d)
 
 
 def banded_lower(n: int, seed: int):
@@ -138,7 +129,7 @@ def banded_lower(n: int, seed: int):
     for off in (1, 2, 7, 13):
         idx = np.arange(n - off)
         d[idx + off, idx] = rng.standard_normal(n - off)
-    return _csc(d)
+    return C.csc(d)
 
 
 def crossing(m: int, seed: int):
@@ -147,7 +138,7 @@ def crossing(m: int, seed: int):
     rng = np.random.default_rng(seed)
     d = (rng.random((m, m)) < 0.06) * rng.standard_normal((m, m))
     np.fill_diagonal(d, d.diagonal() + 0.01 * rng.random(m))
-    return _csc(d)
+    return C.csc(d)
 
 
 def vals_case(D: int, seed: int):
@@ -158,7 +149,7 @@ def vals_case(D: int, seed: int):
     least-squares matrix and a 70 x 90 minimum-norm one for the QR
     cases, their values scaled by 1 + 0.3k."""
     rng = np.random.default_rng(seed)
-    m, n, p, i, x = lap(10)
+    m, n, p, i, x = C.laplacian(10)
     K = D + 3
     diag = i == np.repeat(np.arange(n), np.diff(p))
     chol = np.tile(x, (K, 1))
@@ -185,7 +176,7 @@ def dryrun_case():
     matrix in place of its asset."""
     rng = np.random.default_rng(0)
     a = spd(60, 11)
-    return dict(a=a, B=rng.standard_normal((4, 60)), lap=lap(16),
+    return dict(a=a, B=rng.standard_normal((4, 60)), lap=C.laplacian(16),
                 x=rng.standard_normal(256), bl=rng.standard_normal(256),
                 Bv=rng.standard_normal((5, 256)))
 
@@ -193,12 +184,6 @@ def dryrun_case():
 # ---------------------------------------------------------------------------
 # The suites (run on every rank)
 # ---------------------------------------------------------------------------
-
-
-def _sprs(f):
-    from rsparse_tpu_torch.convert import sprs_from_fields
-
-    return sprs_from_fields(*f)
 
 
 def suite_parallel(D: int) -> dict:
@@ -213,7 +198,7 @@ def suite_parallel(D: int) -> dict:
     except ValueError as e:
         out["mesh_error"] = np.array(str(e))
     rng = np.random.default_rng(0)
-    g = _sprs(general(50, 50, 1, 300))
+    g = C.port(general(50, 50, 1, 300))
     x, y = rng.standard_normal(50), rng.standard_normal(50)
     ep = par.partition_entries(g, D)
     out["gaxpy"] = par.dist_gaxpy(ep, x, y, mesh).numpy()
@@ -223,7 +208,7 @@ def suite_parallel(D: int) -> dict:
     out["make_gaxpy_copy"] = f(ep.vals, ep.rows.copy(), ep.cols.copy(), x,
                                y).numpy()
     out["norm"] = np.array(par.dist_norm(ep, mesh))
-    r = _sprs(general(40, 30, 2, 150))
+    r = C.port(general(40, 30, 2, 150))
     rt_ = rt.transpose(r, device="cpu")
     for name, (u, v) in {"sq": (g, g), "rect": (rt_, r)}.items():
         c = par.dist_spgemm(u, v, mesh)
@@ -234,7 +219,7 @@ def suite_parallel(D: int) -> dict:
             out[f"sgd_{name}_{dt}_p"] = c.p
             out[f"sgd_{name}_{dt}_i"] = c.i[: c.nnz()]
             out[f"sgd_{name}_{dt}_x"] = c.x[: c.nnz()]
-    a = _sprs(spd(80, 3))
+    a = C.port(spd(80, 3))
     s = rt.schol(a, 0)
     L = rt.chol(a, s, device="cpu").l
     U = rt.transpose(L, device="cpu")
@@ -264,7 +249,7 @@ def _vals(D: int) -> dict:
 
     out = {}
     v = vals_case(D, 6)
-    a = _sprs(v["a"])
+    a = C.port(v["a"])
     K = v["K"]
     mesh = par.make_mesh(D, data=D, device="cpu")
     rt.config.mf_min_n = 64
@@ -280,9 +265,9 @@ def _vals(D: int) -> dict:
         out["chol_vals_npd"] = np.array(str(e))
     out["lu_vals"] = par.dist_lusol_vals(a, v["lu"], v["B"], mesh, 1, 1e-6,
                                          sym=rt.sqr(a, 1, False))
-    qa = _sprs(v["qa"])
+    qa = C.port(v["qa"])
     out["qr_vals_ls"] = par.dist_qrsol_vals(qa, v["qr"], v["Bq"], mesh, 2)
-    out["qr_vals_mn"] = par.dist_qrsol_vals(_sprs(v["qw"]), v["qrw"], v["Bw"],
+    out["qr_vals_mn"] = par.dist_qrsol_vals(C.port(v["qw"]), v["qrw"], v["Bw"],
                                             mesh, 2)
     rt.config.mf_min_n = 1500
     return out
@@ -297,13 +282,13 @@ def _dryrun(D: int) -> dict:
 
     c = dryrun_case()
     mesh = par.make_mesh(D, data=2, device="cpu")
-    a = _sprs(c["a"])
+    a = C.port(c["a"])
     L = rt.chol(a, rt.schol(a, -1), device="cpu").l
     X1 = par.refine_step(a, L, np.zeros_like(c["B"]), c["B"], mesh).numpy()
     resid = np.abs(a.to_dense_np() @ X1.T - c["B"].T).max()
     assert resid < 1e-8, f"refine step residual {resid}"
     mesh1 = par.make_mesh(D, data=1, device="cpu")
-    lap_ = _sprs(c["lap"])
+    lap_ = C.port(c["lap"])
     dl = lap_.to_dense_np()
     r = dist_gaxpy_halo(partition_rows(lap_, D), c["x"], np.zeros(256), mesh1)
     assert np.abs(r - dl @ c["x"]).max() < 1e-8, "halo SpMV mismatch"
@@ -337,17 +322,17 @@ def suite_halo(D: int) -> dict:
     out = {}
     mesh = par.make_mesh(D, data=1, device="cpu")
     rng = np.random.default_rng(0)
-    lp = _sprs(lap(16))
+    lp = C.port(C.laplacian(16))
     x = rng.standard_normal(256)
     y = rng.standard_normal(256)
     out["gaxpy_lap"] = H.dist_gaxpy_halo(H.partition_rows(lp, D), x, y, mesh)
-    g = _sprs(general(90, 90, 4, 400))  # entries reach every shard
+    g = C.port(general(90, 90, 4, 400))  # entries reach every shard
     out["gaxpy_gen"] = H.dist_gaxpy_halo(H.partition_rows(g, D), x[:90],
                                          y[:90], mesh)
-    a = _sprs(lap(12))
+    a = C.port(C.laplacian(12))
     L = rt.chol(a, rt.schol(a, 0), device="cpu").l
     U = rt.transpose(L, device="cpu")
-    bt = _sprs(banded_lower(96, 3))
+    bt = C.port(banded_lower(96, 3))
     b = np.random.default_rng(1).standard_normal(150)
     for name, lo, up, kinds in (("chol", L, U, range(4)),
                                 ("band", bt, None, (0, 2))):
@@ -366,12 +351,12 @@ def suite_halo(D: int) -> dict:
         H.halo_tri_plan = real
     out["routes"] = np.array([H.dist_tri_solve_halo.routes[k] - before[k]
                               for k in ("halo", "replicated")])
-    lu_a = _sprs(general(120, 120, 5, 600))
+    lu_a = C.port(general(120, 120, 5, 600))
     out["lusol"] = H.dist_lusol(lu_a, b[:120], mesh, 1)
     rt.config.mf_min_n = 100
-    out["lusol_mf"] = H.dist_lusol(_sprs(crossing(150, 0)), b[:150], mesh, 1)
+    out["lusol_mf"] = H.dist_lusol(C.port(crossing(150, 0)), b[:150], mesh, 1)
     rt.config.mf_min_n = 1500
-    q = _sprs(general(80, 50, 8, 300))
+    q = C.port(general(80, 50, 8, 300))
     bq = np.random.default_rng(2).standard_normal(80)
     out["qrsol_ls"] = H.dist_qrsol(q, bq, mesh, 0)
     out["qrsol_mn"] = H.dist_qrsol(rt.transpose(q, device="cpu"), bq[:50],
@@ -385,13 +370,6 @@ def suite_halo(D: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _j(f):
-    import rsparse_tpu as rs
-
-    m, n, p, i, x = f
-    return rs.Sprs(len(x), m, n, p, i, x)
-
-
 def jax_parallel(D: int) -> dict:
     import rsparse_tpu as rs
     from rsparse_tpu import parallel as jpar
@@ -400,12 +378,12 @@ def jax_parallel(D: int) -> dict:
     out = {}
     mesh = jpar.make_mesh(D, data=1)
     rng = np.random.default_rng(0)
-    g = _j(general(50, 50, 1, 300))
+    g = C.jax(general(50, 50, 1, 300))
     x, y = rng.standard_normal(50), rng.standard_normal(50)
     ep = jpar.partition_entries(g, D)
     out["gaxpy"] = np.asarray(jpar.dist_gaxpy(ep, x, y, mesh))
     out["norm"] = np.array(jpar.dist_norm(ep, mesh))
-    r = _j(general(40, 30, 2, 150))
+    r = C.jax(general(40, 30, 2, 150))
     for name, (u, v) in {"sq": (g, g), "rect": (rs.transpose(r), r)}.items():
         c = jpar.dist_spgemm(u, v, mesh)
         out[f"spgemm_{name}_p"], out[f"spgemm_{name}_i"] = c.p, c.i[: c.nnz()]
@@ -415,7 +393,7 @@ def jax_parallel(D: int) -> dict:
             out[f"sgd_{name}_{dt}_p"] = c.p
             out[f"sgd_{name}_{dt}_i"] = c.i[: c.nnz()]
             out[f"sgd_{name}_{dt}_x"] = c.x[: c.nnz()]
-    a = _j(spd(80, 3))
+    a = C.jax(spd(80, 3))
     L = rs.chol(a, rs.schol(a, 0)).l
     L.x = np.asarray(L.x)
     U = rs.transpose(L)
@@ -437,7 +415,7 @@ def jax_vals(D: int) -> dict:
 
     out = {}
     v = vals_case(D, 6)
-    a, K, mesh = _j(v["a"]), v["K"], jpar.make_mesh(D, data=D)
+    a, K, mesh = C.jax(v["a"]), v["K"], jpar.make_mesh(D, data=D)
     rs.config.mf_min_n = 64
     s = rs.schol(a, 0)
     out["chol_vals"] = jpar.dist_cholsol_vals(a, v["chol"], v["B"], mesh, 0,
@@ -451,9 +429,9 @@ def jax_vals(D: int) -> dict:
             out["chol_vals_npd"] = np.array(str(e))
     out["lu_vals"] = jpar.dist_lusol_vals(a, v["lu"], v["B"], mesh, 1, 1e-6,
                                           sym=rs.sqr(a, 1, False))
-    out["qr_vals_ls"] = jpar.dist_qrsol_vals(_j(v["qa"]), v["qr"], v["Bq"],
+    out["qr_vals_ls"] = jpar.dist_qrsol_vals(C.jax(v["qa"]), v["qr"], v["Bq"],
                                              mesh, 2)
-    out["qr_vals_mn"] = jpar.dist_qrsol_vals(_j(v["qw"]), v["qrw"], v["Bw"],
+    out["qr_vals_mn"] = jpar.dist_qrsol_vals(C.jax(v["qw"]), v["qrw"], v["Bw"],
                                              mesh, 2)
     return out
 
@@ -467,15 +445,15 @@ def jax_halo(D: int) -> dict:
     mesh = jpar.make_mesh(D, data=1)
     rng = np.random.default_rng(0)
     x, y = rng.standard_normal(256), rng.standard_normal(256)
-    out["gaxpy_lap"] = JH.dist_gaxpy_halo(JH.partition_rows(_j(lap(16)), D),
-                                          x, y, mesh)
+    out["gaxpy_lap"] = JH.dist_gaxpy_halo(
+        JH.partition_rows(C.jax(C.laplacian(16)), D), x, y, mesh)
     out["gaxpy_gen"] = JH.dist_gaxpy_halo(
-        JH.partition_rows(_j(general(90, 90, 4, 400)), D), x[:90], y[:90],
+        JH.partition_rows(C.jax(general(90, 90, 4, 400)), D), x[:90], y[:90],
         mesh)
-    a = _j(lap(12))
+    a = C.jax(C.laplacian(12))
     L = rs.chol(a, rs.schol(a, 0)).l
     L.x = np.asarray(L.x)
-    bt = _j(banded_lower(96, 3))
+    bt = C.jax(banded_lower(96, 3))
     b = np.random.default_rng(1).standard_normal(150)
     for name, lo, up, kinds in (("chol", L, rs.transpose(L), range(4)),
                                 ("band", bt, None, (0, 2))):
@@ -485,12 +463,12 @@ def jax_halo(D: int) -> dict:
                 JH.dist_tri_solve_halo(t, b[: t.n], kind, mesh))
     out["tri_replicated"] = np.asarray(jpar.dist_tri_solve(L, b[:144], 0,
                                                            mesh))
-    out["lusol"] = JH.dist_lusol(_j(general(120, 120, 5, 600)), b[:120],
+    out["lusol"] = JH.dist_lusol(C.jax(general(120, 120, 5, 600)), b[:120],
                                  mesh, 1)
     rs.config.mf_min_n = 100
-    out["lusol_mf"] = JH.dist_lusol(_j(crossing(150, 0)), b[:150], mesh, 1)
+    out["lusol_mf"] = JH.dist_lusol(C.jax(crossing(150, 0)), b[:150], mesh, 1)
     rs.config.mf_min_n = 1500
-    q = _j(general(80, 50, 8, 300))
+    q = C.jax(general(80, 50, 8, 300))
     bq = np.random.default_rng(2).standard_normal(80)
     out["qrsol_ls"] = JH.dist_qrsol(q, bq, mesh, 0)
     out["qrsol_mn"] = JH.dist_qrsol(rs.transpose(q), bq[:50], mesh, 0)
