@@ -20,7 +20,8 @@ at full size and checks them:
      device="cuda")` answers 4 requests of B[n, 128]; each answer is held
      to its residual and to the C++ engine's exact LU solves, the factor
      route must be the device multifrontal one, and the kernel launch count
-     of the run must be at least 2 per request; then a profile of two
+     of the run must be at least 2 per request, the SpMM kernel's (the
+     residuals) at least 1; then a profile of two
      requests (sweeps against the refinement loop);
   5. DIA SpMV (main path 2): the 1024 x 1024 5-point Laplacian (n = 2^20),
      `dia_plan` in float32 and float64; the kernel against its plain
@@ -34,7 +35,15 @@ at full size and checks them:
      version and, at B = 128, against 128 sequential C++ gaxpy calls; its
      time beside its bound and a cuSPARSE CSR SpMM; the same kernel in
      float64 at B = 128 on the DIA phase's Laplacian (a pattern with
-     locality); then the public `gaxpy_multi(a, X, device="cuda")` once;
+     locality); its residual form R = S - A X (the serve handles'
+     refinement residual) in float64 at B = 128 on the three benchmark
+     cells' matrices (lap2d-256, hpcg27-24, cd2d-128, from
+     `benchmark/generators`, the Cholesky two as `solve._sym_coo` gives
+     them to the handle), against its plain version and S minus the plain
+     kernel's product, its time beside its bound (A's CSR, X, S and R once
+     each), the plain kernel's and the COO chain's it replaced
+     (`solve._coo_amul`, then the subtraction); then the public
+     `gaxpy_multi(a, X, device="cuda")` once;
   7. lusol (main path 4): the lusol_serve phase's matrix, `lusol(A, b, 1,
      1e-6, sym=s, device="cuda")` once cold and three times warm (b a list
      once, an ndarray otherwise); each answer held to its residual and to
@@ -61,7 +70,8 @@ at full size and checks them:
      and NoPivotError from lusol on a structurally singular matrix;
   9. cholsol_serve (main path 6): the same Laplacian, 4 requests of
      B[n, 128]; each answer held to its residual and to the C++ engine's 128
-     sequential solves, at least 2 kernel launches per request; the
+     sequential solves, at least 2 kernel launches per request and 1 of the
+     SpMM kernel's (the residuals); the
      handle's L-then-L' kernel pair against its plain version on one
      request; the L' (gather form) sweep's time beside its bound and a
      cuSPARSE triangular solve; a profile of two requests;
@@ -784,6 +794,7 @@ def phase_main(a, seed: int, device: str = "cuda"):
         walls.append(time.perf_counter() - t0)
         answers.append(X)
     launches = read_counts()["sptrsv_sweep"]
+    residuals = read_counts()["spmm_stream"]
 
     bs = h.build_seconds
     print(f"main: n={n} nnz={nz} analysis_s={t_an:.4f} factor_s={bs['factor']:.4f} "
@@ -791,12 +802,15 @@ def phase_main(a, seed: int, device: str = "cuda"):
           f"route={h.factor_route} static_rejected="
           f"{bool(getattr(s, '_static_rejected', False))}", flush=True)
     print("main: request_wall_s=" + ",".join(f"{w:.5f}" for w in walls)
-          + f" kernel_launches={launches}", flush=True)
+          + f" kernel_launches={launches} residual_launches={residuals}",
+          flush=True)
     check(h.factor_route == "device_mf"
           and not getattr(s, "_static_rejected", False),
           f"factor route is {h.factor_route}, not the device multifrontal LU")
     check(launches >= 2 * REQUESTS,
           f"only {launches} kernel launches for {REQUESTS} requests")
+    check(residuals >= REQUESTS,
+          f"only {residuals} SpMM residual launches for {REQUESTS} requests")
 
     # oracles: residual on the card, and the C++ engine's exact LU solves
     Mi = torch.as_tensor(a.i[:nz], device=device)
@@ -1015,6 +1029,8 @@ def phase_spmm(seed: int, device: str = "cuda"):
         torch.cuda.empty_cache()
 
     max_abs = max(max_abs, spmm_laplacian(seed, device))
+    out["residual"], resid_err = spmm_residual(seed, device)
+    max_abs = max(max_abs, resid_err)
 
     # main path: the public gaxpy_multi on the card (float64, A's dtype)
     reset_counts()
@@ -1071,6 +1087,83 @@ def spmm_laplacian(seed: int, device: str = "cuda") -> float:
     del X, vals, vals_csr
     torch.cuda.empty_cache()
     return err
+
+
+# the benchmark cells' matrices: (cell, generator, its parameters, Cholesky)
+RESID_CELLS = (("lap2d-256", "poisson5", {"grid": 256}, True),
+               ("hpcg27-24", "hpcg27", {"grid": 24}, True),
+               ("cd2d-128", "convdiff5", {"grid": 128, "peclet": [0.5, 0.25]},
+                False))
+
+
+def spmm_residual(seed: int, device: str = "cuda"):
+    """The SpMM kernel's residual form R = S - A X in float64 at B = NRHS
+    on the benchmark cells' matrices (`RESID_CELLS`), on the plan the serve
+    handle builds (`spmm_plan_coo` of its COO: `solve._sym_coo` in AMD's
+    order for the Cholesky cells, A's CSC for the LU one): against its
+    plain version and S minus the plain kernel's product; its time, the
+    plain kernel's (A X alone) and the COO chain's it replaced
+    (`solve._coo_amul`'s gather, product and index_add_, then the
+    subtraction), each L2-cold, beside its bound (A's CSR, X, S and R once
+    each). Returns (a dict of numbers per cell, the largest difference)."""
+    import importlib
+
+    import torch
+
+    from rsparse_tpu_torch import Sprs, schol
+    from rsparse_tpu_torch.ops.plan import col_ids
+    from rsparse_tpu_torch.ops.spmm_cuda import (spmm_csr, spmm_plain,
+                                                 spmm_plan_coo)
+    from rsparse_tpu_torch.solve import _coo_amul, _sym_coo
+
+    out, max_abs = {}, 0.0
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 8)
+    for cell, name, params, spd in RESID_CELLS:
+        n, p, i, x = importlib.import_module(
+            f"benchmark.generators.{name}").make(params, None)
+        a = Sprs(len(x), n, n, p, i, np.asarray(x, np.float64))
+        if spd:
+            Mi, Mj, Mx = _sym_coo(a, schol(a, 1).pinv)
+        else:
+            Mi, Mj, Mx = a.i[: a.nnz()], col_ids(a.p, n), np.asarray(x)
+        plan = spmm_plan_coo(Mi, Mj, n, n)
+        nnz = plan.nnz
+        ix = lambda v: torch.as_tensor(np.asarray(v, np.int64), device=device)
+        vals = torch.as_tensor(np.asarray(Mx, np.float64), device=device)
+        vals_csr = vals[ix(plan.perm)]
+        X, S = (torch.randn((n, NRHS), generator=gen, dtype=torch.float64,
+                            device=device) for _ in range(2))
+        Mi_d, Mj_d = ix(Mi), ix(Mj)
+        coo = lambda: S - _coo_amul(Mi_d, Mj_d, vals)(X)
+        got = spmm_csr(vals_csr, X, plan, sub=S)
+        err, rel = rel_err(got, spmm_plain(vals, X, plan, sub=S))
+        _, coo_rel = rel_err(got, coo())
+        same = bool(torch.equal(got, S - spmm_csr(vals_csr, X, plan)))
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and rel <= NEW_TOL["float64"]
+              and coo_rel <= NEW_TOL["float64"] and same,
+              f"spmm residual {cell}: the residual form disagrees with its "
+              f"plain version ({rel:.3e}), the COO chain ({coo_rel:.3e}) or "
+              f"S minus the plain kernel (equal: {same})")
+        max_abs = max(max_abs, err)
+        del got
+        ms = cuda_ms_cold(lambda: spmm_csr(vals_csr, X, plan, sub=S), 10)
+        plain_kernel = cuda_ms_cold(lambda: spmm_csr(vals_csr, X, plan), 10)
+        coo_ms = cuda_ms_cold(coo, 5)
+        b, by = bound_ms(nnz * 12 + 4 * (n + 1) + 3 * n * NRHS * 8,
+                         2 * nnz * NRHS, "float64")
+        print(f"spmm residual {cell} float64 B={NRHS}: n={n} nnz={nnz} "
+              f"max_abs_err={err:.3e} rel_err={rel:.3e} coo_rel_diff="
+              f"{coo_rel:.3e} kernel_ms={ms:.4f} plain_kernel_ms="
+              f"{plain_kernel:.4f} coo_chain_ms={coo_ms:.4f} bound_ms={b:.4f} "
+              f"({by}) bound_share={b / ms:.4f}", flush=True)
+        out[cell] = {"n": n, "nnz": nnz, "ms": ms,
+                     "plain_kernel_ms": plain_kernel, "coo_chain_ms": coo_ms,
+                     "bound_ms": b, "bound_by": by}
+        del X, S, vals, vals_csr, Mi_d, Mj_d
+        torch.cuda.empty_cache()
+    return out, max_abs
 
 
 def host_residual(a, x: np.ndarray) -> np.ndarray:
@@ -1430,17 +1523,18 @@ def replay_sweeps(label: str, seen: dict, what) -> tuple:
 @contextlib.contextmanager
 def recording_spmm():
     """Every SpMM kernel launch inside is recorded into the dict it yields:
-    {(plan, dtype, B): (CSR-ordered values, X, plan)}, the first launch of
-    each, inputs cloned."""
+    {(plan, dtype, B, residual form): (CSR-ordered values, X, plan, S or
+    None)}, the first launch of each, inputs cloned."""
     from rsparse_tpu_torch.ops import spmm_cuda, spmv_general
 
     real, seen = spmm_cuda.spmm_csr, {}
 
-    def record(vals_csr, X, plan):
-        key = (id(plan), X.dtype, X.shape[1])
+    def record(vals_csr, X, plan, sub=None):
+        key = (id(plan), X.dtype, X.shape[1], sub is not None)
         if key not in seen:
-            seen[key] = (vals_csr.clone(), X.clone(), plan)
-        return real(vals_csr, X, plan)
+            seen[key] = (vals_csr.clone(), X.clone(), plan,
+                         None if sub is None else sub.clone())
+        return real(vals_csr, X, plan, sub=sub)
 
     record.launches = 0  # the kernel counts its launches on the module's name
     spmm_cuda.spmm_csr = spmv_general.spmm_csr = record
@@ -1453,48 +1547,52 @@ def recording_spmm():
 def replay_spmm(label: str, seen: dict) -> tuple:
     """Replay recorded SpMM launches (`recording_spmm`): each held against
     its plain version (NEW_TOL), its time beside its bound (each value,
-    column index, row pointer, X and R element once; a multiply-add per
+    column index, row pointer, X, S and R element once; a multiply-add per
     entry and column), the plain version's time and `torch.sparse.mm`'s
-    on the same CSR matrix. Returns (a dict of numbers per launch, the
-    largest difference)."""
+    on the same CSR matrix (S minus it for the residual form). Returns (a
+    dict of numbers per launch, the largest difference)."""
     import torch
 
     from rsparse_tpu_torch.ops.spmm_cuda import _streams, spmm_csr, spmm_plain
 
     out, max_abs = [], 0.0
-    for vals_csr, X, plan in seen.values():
+    for vals_csr, X, plan, sub in seen.values():
         dt, B, m, n, nnz = dname(X.dtype), X.shape[1], plan.m, plan.n, plan.nnz
         st = _streams(plan, X.device)
         vals = torch.empty_like(vals_csr)
         vals[st["perm"]] = vals_csr  # back to CSC order, the plain version's
-        got = spmm_csr(vals_csr, X, plan)
-        ref = spmm_plain(vals, X, plan)
+        got = spmm_csr(vals_csr, X, plan, sub=sub)
+        ref = spmm_plain(vals, X, plan, sub=sub)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
         check(bool(torch.isfinite(got).all()) and rel <= NEW_TOL[dt],
               f"{label} spmm {dt} B={B}: the kernel disagrees with the plain "
               f"version: {rel:.3e}")
         max_abs = max(max_abs, err)
-        ms = cuda_ms(lambda: spmm_csr(vals_csr, X, plan), 10)
-        plain = cuda_ms(lambda: spmm_plain(vals, X, plan), 3)
+        ms = cuda_ms(lambda: spmm_csr(vals_csr, X, plan, sub=sub), 10)
+        plain = cuda_ms(lambda: spmm_plain(vals, X, plan, sub=sub), 3)
         Xc = X.contiguous()
         A_csr = torch.sparse_csr_tensor(st["row_ptr"], st["col_idx"], vals_csr,
                                         size=(m, n))
+        lib_fn = ((lambda: torch.sparse.mm(A_csr, Xc)) if sub is None
+                  else (lambda: sub - torch.sparse.mm(A_csr, Xc)))
         try:
-            _, lib_rel = rel_err(torch.sparse.mm(A_csr, Xc), got)
-            lib = cuda_ms(lambda: torch.sparse.mm(A_csr, Xc), 10)
+            _, lib_rel = rel_err(lib_fn(), got)
+            lib = cuda_ms(lib_fn, 10)
             lib_txt = f"library_ms={lib:.4f} library_rel_diff={lib_rel:.3e}"
         except (RuntimeError, NotImplementedError, TypeError) as e:
             lib, lib_txt = None, f"library: none ({type(e).__name__})"
         item = X.element_size()
         b_ms, b_by = bound_ms(nnz * (item + 4) + 4 * (m + 1)
-                              + (n + m) * B * item, 2 * nnz * B, dt)
-        print(f"{label}: spmm {dt} B={B} m={m} n={n} nnz={nnz}: max_abs_err="
+                              + (n + m * (1 if sub is None else 2)) * B * item,
+                              2 * nnz * B, dt)
+        form = "" if sub is None else " residual"
+        print(f"{label}: spmm{form} {dt} B={B} m={m} n={n} nnz={nnz}: max_abs_err="
               f"{err:.3e} rel_err={rel:.3e} kernel_ms={ms:.4f} plain_ms="
               f"{plain:.4f} bound_ms={b_ms:.5f} ({b_by}) bound_share="
               f"{b_ms / ms:.5f} {lib_txt}", flush=True)
         out.append({"path": label, "m": m, "n": n, "B": B, "dtype": dt,
-                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "residual": sub is not None, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": lib})
     return out, max_abs
 
@@ -1536,16 +1634,20 @@ def phase_cholsol_serve(a, s, seed: int, device: str = "cuda"):
         walls.append(time.perf_counter() - t0)
         answers.append(X)
     launches = read_counts()["sptrsv_sweep"]
+    residuals = read_counts()["spmm_stream"]
     bsec = h.build_seconds
     print(f"cholsol_serve: n={n} route={h.factor_route} factor_s="
           f"{bsec['factor']:.4f} handle_s={bsec['handle']:.4f} "
           "request_wall_s=" + ",".join(f"{w:.5f}" for w in walls)
-          + f" kernel_launches={launches}", flush=True)
+          + f" kernel_launches={launches} residual_launches={residuals}",
+          flush=True)
     check(h.factor_route == "device_mf", f"cholsol_serve route is "
           f"{h.factor_route}, not the device multifrontal Cholesky")
     check(launches >= 2 * REQUESTS,
           f"cholsol_serve: only {launches} kernel launches for {REQUESTS} "
           "requests")
+    check(residuals >= REQUESTS, f"cholsol_serve: only {residuals} SpMM "
+          f"residual launches for {REQUESTS} requests")
     factors = chol_host_factor(a, s)
     pinv = np.asarray(s.pinv, np.int64)
     nz = a.nnz()
@@ -3985,6 +4087,7 @@ def main(argv=None) -> int:
                        max(spmm_err, general_err, small_spmm_err),
                        spmm[("float64", NRHS)])
     spmm_entry["launches_by_path"] = spmm_paths
+    spmm_entry["residual"] = spmm["residual"]
     spmm_entry["spmv_general"] = spmv_general_recs
     spmm_entry["example_spmm"] = small_spmm
     print(f"general: spgemm_general {spgemm}; chain {opchain}", flush=True)

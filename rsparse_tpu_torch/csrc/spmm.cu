@@ -44,6 +44,18 @@
 // (evict first) and an evict-last policy on X were measured slower. Sums
 // stay in registers and each element of R is written once. Offsets row*B
 // and col*B are 64-bit.
+//
+// Residual form. With a matrix S[m, B] passed (the template flag Sub, set
+// when the entry point gets S), the store writes R = S - A X: S's element
+// is read once, beside the row's sums, and nothing else changes; the plain
+// instantiation (Sub false) never reads S. It is the serve handles'
+// refinement residual B - A X in one launch (`solve._make_serve_handle` on
+// a card). There it replaces `solve._coo_amul` (the JAX package's
+// `_coo_amul`, a segment sum that XLA lowers), which on the card is a
+// gather of X into an [nnz, B] temporary, a product into a second, a zero
+// fill and an atomic index_add_ per entry and column, then the
+// subtraction. Its bound is A's CSR (12 bytes an entry in float64) and X,
+// S and R once each.
 
 #include <cuda_runtime.h>
 
@@ -86,12 +98,14 @@ __device__ __forceinline__ void store_r(T* p, const T (&a)[V]) {
 // One output row of one tile of `tile` (= W K V) columns per group of W
 // lanes; the tile is blockIdx.y. (`tile` is a run-time argument: with it
 // folded into a constant, nvcc schedules the float64 loop differently and
-// the kernel measured slower on the stencil.)
-template <typename T, int V, int W>
+// the kernel measured slower on the stencil.) Sub: R = S - A X; otherwise
+// S is not read.
+template <typename T, int V, int W, bool Sub>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 spmm_rows(const int* __restrict__ rowptr, const int* __restrict__ colidx,
           const T* __restrict__ vals, const T* __restrict__ X,
-          T* __restrict__ R, int m, int B, int tile) {
+          const T* __restrict__ S, T* __restrict__ R, int m, int B,
+          int tile) {
   constexpr int K = 32 / static_cast<int>(sizeof(T)) / V;
   constexpr int G = kThreads / W;  // rows per CTA
   const int row = blockIdx.x * G + threadIdx.x / W;
@@ -146,35 +160,48 @@ spmm_rows(const int* __restrict__ rowptr, const int* __restrict__ colidx,
         for (int j = 0; j < V; ++j) acc[k][j] += v * x1.v[j];
       }
   }
-  T* rr = R + static_cast<int64_t>(row) * B + c_lo + lane * V;
+  const int64_t out = static_cast<int64_t>(row) * B + c_lo + lane * V;
+  if constexpr (Sub) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (on[k]) {
+        const Pack<T, V> s1 = load_x<T, V>(S + out + k * W * V);
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[k][j] = s1.v[j] - acc[k][j];
+      }
+  }
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if (on[k]) store_r<T, V>(rr + k * W * V, acc[k]);
+    if (on[k]) store_r<T, V>(R + out + k * W * V, acc[k]);
 }
 
 template <typename T, int V, int W>
 int launch_vw(const int* rowptr, const int* colidx, const T* vals, const T* X,
-              T* R, int m, int B, cudaStream_t s) {
+              const T* S, T* R, int m, int B, cudaStream_t s) {
   constexpr int G = kThreads / W;
   constexpr int tile = W * 32 / static_cast<int>(sizeof(T));
   const dim3 grid(static_cast<unsigned>((m + G - 1) / G),
                   static_cast<unsigned>((B + tile - 1) / tile));
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  spmm_rows<T, V, W><<<grid, kThreads, 0, s>>>(rowptr, colidx, vals, X, R, m,
-                                                B, tile);
+  if (S != nullptr)
+    spmm_rows<T, V, W, true><<<grid, kThreads, 0, s>>>(rowptr, colidx, vals,
+                                                        X, S, R, m, B, tile);
+  else
+    spmm_rows<T, V, W, false><<<grid, kThreads, 0, s>>>(rowptr, colidx, vals,
+                                                         X, S, R, m, B, tile);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
 int launch_v(const int* rowptr, const int* colidx, const T* vals, const T* X,
-             T* R, int m, int B, int W, cudaStream_t s) {
+             const T* S, T* R, int m, int B, int W, cudaStream_t s) {
   switch (W) {
-    case 1: return launch_vw<T, V, 1>(rowptr, colidx, vals, X, R, m, B, s);
-    case 2: return launch_vw<T, V, 2>(rowptr, colidx, vals, X, R, m, B, s);
-    case 4: return launch_vw<T, V, 4>(rowptr, colidx, vals, X, R, m, B, s);
-    case 8: return launch_vw<T, V, 8>(rowptr, colidx, vals, X, R, m, B, s);
-    case 16: return launch_vw<T, V, 16>(rowptr, colidx, vals, X, R, m, B, s);
-    case 32: return launch_vw<T, V, 32>(rowptr, colidx, vals, X, R, m, B, s);
+    case 1: return launch_vw<T, V, 1>(rowptr, colidx, vals, X, S, R, m, B, s);
+    case 2: return launch_vw<T, V, 2>(rowptr, colidx, vals, X, S, R, m, B, s);
+    case 4: return launch_vw<T, V, 4>(rowptr, colidx, vals, X, S, R, m, B, s);
+    case 8: return launch_vw<T, V, 8>(rowptr, colidx, vals, X, S, R, m, B, s);
+    case 16: return launch_vw<T, V, 16>(rowptr, colidx, vals, X, S, R, m, B, s);
+    case 32: return launch_vw<T, V, 32>(rowptr, colidx, vals, X, S, R, m, B, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -183,28 +210,32 @@ int launch_v(const int* rowptr, const int* colidx, const T* vals, const T* X,
 
 // Plain C entry points (bound with ctypes). rowptr [m + 1] and colidx
 // [nnz] are int32 CSR arrays, vals [nnz] the values in CSR order, X [n, B]
-// and R [m, B] row-major. V is the vector width (1, or 4 in float32 only:
-// then B is a multiple of 4 and X 16-byte aligned), W the lanes per row (1,
-// 2, 4, 8, 16 or 32). Each returns cudaGetLastError() after the launch: 0
-// when it was accepted.
+// and R [m, B] row-major. S [m, B], row-major, or null: given, R = S - A X
+// (the residual form), else R = A X. V is the vector width (1, or 4 in
+// float32 only: then B is a multiple of 4 and X and S 16-byte aligned), W
+// the lanes per row (1, 2, 4, 8, 16 or 32). Each returns cudaGetLastError()
+// after the launch: 0 when it was accepted.
 extern "C" int spmm_csr_f32(int device, const int* rowptr, const int* colidx,
-                            const float* vals, const float* X, float* R,
-                            int m, int B, int V, int W, void* stream) {
+                            const float* vals, const float* X, const float* S,
+                            float* R, int m, int B, int V, int W,
+                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (V == 1) return launch_v<float, 1>(rowptr, colidx, vals, X, R, m, B, W, s);
+  if (V == 1)
+    return launch_v<float, 1>(rowptr, colidx, vals, X, S, R, m, B, W, s);
   if (V == 4 && B % 4 == 0)
-    return launch_v<float, 4>(rowptr, colidx, vals, X, R, m, B, W, s);
+    return launch_v<float, 4>(rowptr, colidx, vals, X, S, R, m, B, W, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int spmm_csr_f64(int device, const int* rowptr, const int* colidx,
-                            const double* vals, const double* X, double* R,
-                            int m, int B, int V, int W, void* stream) {
+                            const double* vals, const double* X,
+                            const double* S, double* R, int m, int B, int V,
+                            int W, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (V != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_v<double, 1>(rowptr, colidx, vals, X, R, m, B, W,
+  return launch_v<double, 1>(rowptr, colidx, vals, X, S, R, m, B, W,
                              static_cast<cudaStream_t>(stream));
 }

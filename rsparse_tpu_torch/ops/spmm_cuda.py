@@ -8,7 +8,9 @@ float64, no size gate; the source's header says what bounds it and how).
 
   - `spmm_plan(a)` / `spmm_plan_cached(a)`: the host plan (numpy): A's CSC
     entry rows and columns, and its CSR copy (row pointers, column ids and
-    the CSR -> CSC entry permutation, from `ops.plan.transpose_plan`).
+    the CSR -> CSC entry permutation, a stable sort by row, as
+    `ops.plan.transpose_plan`'s); `spmm_plan_coo(rows, cols, m, n)` the
+    same for A given as COO entries in any order.
   - `launch_config(B, itemsize, x_ptr)`: the kernel's lanes per row, its
     tiles of RHS columns and its vector width.
   - `spmm_fn(plan)` returns `f(vals, X) -> R`, with vals the entry values
@@ -18,6 +20,8 @@ float64, no size gate; the source's header says what bounds it and how).
     a CPU tensor, f runs `spmm_plain`, the plain torch version (one
     `index_add_` over the CSC entries), which the CPU tests use and the
     chip check compares the kernel with.
+  - `spmm_csr(..., sub=S)` and `spmm_plain(..., sub=S)`: the residual
+    form R = S - A @ X, in the kernel one launch (its store subtracts).
   - `spmm(a, X)`: R = A @ X in X's dtype (float32 or float64), plan cached
     per pattern; the counterpart of `spmm_pallas`.
 
@@ -29,16 +33,18 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..data import Sprs
 from . import cuda_build
-from .plan import _cached_plan, col_ids, device_cache, transpose_plan
+from .plan import _cached_plan, col_ids, device_cache
 
-__all__ = ["SpmmPlan", "spmm_plan", "spmm_plan_cached", "spmm_fn", "spmm",
-           "spmm_csr", "spmm_plain", "launch_config", "build"]
+__all__ = ["SpmmPlan", "spmm_plan", "spmm_plan_coo", "spmm_plan_cached",
+           "spmm_fn", "spmm", "spmm_csr", "spmm_plain", "launch_config",
+           "build"]
 
 SOURCE = cuda_build.source("spmm")
 _LANE_BYTES = 32  # bytes of a tile row per lane (csrc/spmm.cu: K * V values)
@@ -52,18 +58,28 @@ class SpmmPlan:
     m: int
     n: int
     nnz: int
-    rows: np.ndarray  # [nnz] row of each CSC entry
-    cols: np.ndarray  # [nnz] column of each CSC entry
+    rows: np.ndarray  # [nnz] row of each CSC (or COO) entry
+    cols: np.ndarray  # [nnz] column of each CSC (or COO) entry
     row_ptr: np.ndarray  # [m + 1] CSR row pointers
     col_idx: np.ndarray  # [nnz] CSR column ids
-    perm: np.ndarray  # [nnz] CSR entry -> CSC entry position
+    perm: np.ndarray  # [nnz] CSR entry -> CSC (or COO) entry position
+
+
+def spmm_plan_coo(rows, cols, m: int, n: int) -> SpmmPlan:
+    """Plan of R = A @ X for the m x n matrix A given as COO entries (rows,
+    cols) in any order, duplicates summed; vals are given in that order.
+    The CSR copy keeps the entries of a row in that order."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    perm = np.argsort(rows, kind="stable")
+    row_ptr = np.zeros(m + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=m), out=row_ptr[1:])
+    return SpmmPlan(m, n, len(rows), rows, cols, row_ptr, cols[perm], perm)
 
 
 def spmm_plan(a: Sprs) -> SpmmPlan:
     nz = a.nnz()
-    tp = transpose_plan(a)
-    return SpmmPlan(a.m, a.n, nz, np.asarray(a.i[:nz], np.int64),
-                    col_ids(a.p, a.n), tp.out_p, tp.out_i, tp.perm)
+    return spmm_plan_coo(a.i[:nz], col_ids(a.p, a.n), a.m, a.n)
 
 
 def spmm_plan_cached(a: Sprs) -> SpmmPlan:
@@ -74,7 +90,7 @@ def spmm_plan_cached(a: Sprs) -> SpmmPlan:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.spmm_csr_f32, lib.spmm_csr_f64):
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
         fn.restype = i
 
 
@@ -109,14 +125,30 @@ def _check(vals: torch.Tensor, X: torch.Tensor, plan: SpmmPlan) -> None:
         raise ValueError("vals and X must share dtype and device")
 
 
-def spmm_plain(vals: torch.Tensor, X: torch.Tensor,
-               plan: SpmmPlan) -> torch.Tensor:
+def _check_sub(sub: torch.Tensor, X: torch.Tensor, plan: SpmmPlan) -> None:
+    """The residual form's S: R's shape [m, B], X's dtype and device,
+    contiguous."""
+    if tuple(sub.shape) != (plan.m, X.shape[1]):
+        raise ValueError(f"sub must be [{plan.m}, {X.shape[1]}], got "
+                         f"{tuple(sub.shape)}")
+    if sub.dtype != X.dtype or sub.device != X.device:
+        raise ValueError("sub and X must share dtype and device")
+    if not sub.is_contiguous():
+        raise ValueError("sub must be contiguous")
+
+
+def spmm_plain(vals: torch.Tensor, X: torch.Tensor, plan: SpmmPlan,
+               sub: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain torch R = A @ X (any device): R[rows] += vals * X[cols] over
-    A's CSC entries. The kernel's reference version."""
+    A's CSC entries; with `sub`, R = sub - A @ X. The kernel's reference
+    version."""
     _check(vals, X, plan)
+    if sub is not None:
+        _check_sub(sub, X, plan)
     st = _streams(plan, X.device)
-    return X.new_zeros((plan.m, X.shape[1])).index_add_(
+    R = X.new_zeros((plan.m, X.shape[1])).index_add_(
         0, st["rows"], vals[:, None] * X[st["cols"]])
+    return R if sub is None else sub - R
 
 
 def launch_config(B: int, itemsize: int, x_ptr: int) -> dict:
@@ -135,22 +167,28 @@ def launch_config(B: int, itemsize: int, x_ptr: int) -> dict:
     return {"V": V, "W": W, "tile": tile, "tiles": -(-B // tile)}
 
 
-def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor,
-             plan: SpmmPlan) -> torch.Tensor:
+def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor, plan: SpmmPlan,
+             sub: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel on a CUDA device: R = A @ X with A's values already in CSR
-    order (`vals[perm]`). Returns a new [m, B] tensor."""
+    order (`vals[perm]`); with `sub` (R's shape, X's dtype and device,
+    contiguous), the residual form R = sub - A @ X in the same launch.
+    Returns a new [m, B] tensor."""
     if X.device.type != "cuda":
         raise ValueError(f"the SpMM kernel runs on a CUDA device, not {X.device}")
     if X.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"SpMM kernel takes float32/float64, got {X.dtype}")
     _check(vals_csr, X, plan)
+    if sub is not None:
+        _check_sub(sub, X, plan)
     m, B = plan.m, X.shape[1]
     R = X.new_empty((m, B))
     if m == 0 or B == 0:
         return R
     st = _streams(plan, X.device)
     X = X.contiguous()
-    cfg = launch_config(B, X.element_size(), X.data_ptr())
+    s_ptr = sub.data_ptr() if sub is not None else None
+    # float4 gathers of X and of S need both 16-byte aligned
+    cfg = launch_config(B, X.element_size(), X.data_ptr() | (s_ptr or 0))
     if cfg["tiles"] > 65535:
         raise ValueError(f"B = {B} is too wide for the kernel's grid")
     lib = build()
@@ -164,8 +202,8 @@ def spmm_csr(vals_csr: torch.Tensor, X: torch.Tensor,
     dev = X.device
     rc = fn(dev.index if dev.index is not None else torch.cuda.current_device(),
             st["row_ptr"].data_ptr(), st["col_idx"].data_ptr(),
-            vals_csr.contiguous().data_ptr(), X.data_ptr(), R.data_ptr(),
-            m, B, cfg["V"], cfg["W"],
+            vals_csr.contiguous().data_ptr(), X.data_ptr(), s_ptr,
+            R.data_ptr(), m, B, cfg["V"], cfg["W"],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"SpMM kernel launch failed (cudaError {rc})")

@@ -493,6 +493,16 @@ def _coo_amul(Mi: torch.Tensor, Mj: torch.Tensor, Mx: torch.Tensor,
     ).index_add_(-2, Mi, Mx[..., None] * X[..., Mj, :])
 
 
+def _csr_amul(Mi, Mj, Mx, rows: int, cols: int, device):
+    """`f(X [cols, B], sub=None)` -> A @ X, or sub - A @ X, for the f64 COO
+    matrix (Mi, Mj, Mx) of shape rows x cols: one launch of the SpMM kernel
+    (`ops.spmm_cuda.spmm_csr`) on A's CSR copy, whose values and index
+    streams are kept on `device`."""
+    plan = ops.spmm_cuda.spmm_plan_coo(Mi, Mj, rows, cols)
+    vals = torch.as_tensor(np.asarray(Mx, np.float64)[plan.perm], device=device)
+    return lambda X, sub=None: ops.spmm_cuda.spmm_csr(vals, X, plan, sub=sub)
+
+
 def _amax(t: torch.Tensor):
     """max|t| over the last two dimensions, read back: a float, or an array
     [K] for K instances (t [K, rows, B]). Each call is one host-device
@@ -581,7 +591,10 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     m x n, `qrsol_serve`): the chain solves the Gram matrix (A'A for
     m >= n, AA' for m < n), and h(B[m, nrhs]) -> X[n, nrhs] runs up to
     `refine` corrected-seminormal-equation steps against A. Every step
-    runs on `device`, in `_refine`'s one loop.
+    runs on `device`, in `_refine`'s one loop. On a CUDA device each
+    product with A or A' is one launch of the SpMM kernel on its CSR copy
+    (`_csr_amul`), the residual B - AX in its residual form; elsewhere
+    `_coo_amul`.
 
     This is also the counterpart of the JAX package's `_chain_prep`: the
     float32 values of each sweep are made here once, and the kernel's
@@ -599,8 +612,18 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
     ix = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
     pin_d = ix(pin) if pin is not None else None
     pout_d = ix(pout) if pout is not None else None
-    Mi_d, Mj_d = ix(Mi), ix(Mj)
-    Mx_d = torch.as_tensor(np.asarray(Mx, np.float64), device=dev)
+    rows = n if m is None else m
+    if dev.type == "cuda":
+        amul = _csr_amul(Mi, Mj, Mx, rows, n, dev)  # A
+        atmul = (None if m is None  # A' (rectangular only)
+                 else _csr_amul(Mj, Mi, Mx, n, rows, dev))
+        minus_ax = lambda X, S: amul(X, sub=S)
+    else:
+        Mi_d, Mj_d = ix(Mi), ix(Mj)
+        Mx_d = torch.as_tensor(np.asarray(Mx, np.float64), device=dev)
+        amul = _coo_amul(Mi_d, Mj_d, Mx_d, m)  # A
+        atmul = _coo_amul(Mj_d, Mi_d, Mx_d, n)  # A' (rectangular only)
+        minus_ax = lambda X, S: S - amul(X)
 
     def solve_full(R):
         with phase_timer("serve.sweeps"):
@@ -612,8 +635,6 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
             Xs = Z.to(torch.float64, memory_format=torch.contiguous_format)
             return Xs if pout_d is None else Xs[pout_d]
 
-    amul = _coo_amul(Mi_d, Mj_d, Mx_d, m)  # A
-    atmul = _coo_amul(Mj_d, Mi_d, Mx_d, n)  # A' (rectangular only)
     tall = m is None or m >= n
     correct = solve_full if tall else lambda r: atmul(solve_full(r))
 
@@ -621,14 +642,15 @@ def _make_serve_handle(n: int, chain, pin, pout, Mi, Mj, Mx, refine: int,
         shape = np.shape(B)
         with phase_timer("serve.request", request=True,
                          attr=shape[-1] if len(shape) > 1 else 1):
-            B64 = torch.as_tensor(B, device=dev).to(torch.float64)
+            B64 = torch.as_tensor(B, device=dev).to(
+                torch.float64, memory_format=torch.contiguous_format)
             # least squares: the gradient A'(B - AX); else A X = B (the
             # minimum norm's X = A'(AA')^-1 B)
             lsq = m is not None and tall
 
             def resid(X):
                 with phase_timer("serve.residual"):
-                    R = B64 - amul(X)
+                    R = minus_ax(X, B64)
                     return atmul(R) if lsq else R
 
             X, rmax = _refine(correct, resid, B64, refine,

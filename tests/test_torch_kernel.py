@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions: the SpTRSV
-sweep (csrc/sptrsv.cu), the streaming SpMM (csrc/spmm.cu) and the DIA SpMV
+sweep (csrc/sptrsv.cu), the streaming SpMM (csrc/spmm.cu; also in its
+residual form, which the serve handles' refinement runs) and the DIA SpMV
 (csrc/spmv_dia.cu), the sweep also over K instances' values at once and in
 its supernodal variant (lap2d-256's L, n = 65,536: one activity and one
 count a call, launches on two streams, the handle build's prepass; and
@@ -552,6 +553,71 @@ def test_spmm_tiles_on_card(pattern, B, dtype, tol):
         assert spmm_csr.launches == before + 1
         assert tuple(got.shape) == (a.m, B) and got.dtype == dtype
         assert C.rel(got, want) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 32, 128])
+@pytest.mark.parametrize("case", ["lap20", "hpcg27", "unsym20"])
+def test_spmm_residual_form_on_card(case, B):
+    """The kernel's residual form R = S - A X (one launch) in float64 on a
+    5-point, a 27-point and a nonsymmetric 5-point pattern: against its
+    plain version, and bit for bit against S minus the plain kernel's
+    product (the same sums in the same order, then one subtraction). At
+    B = 128 also in float32 from an S whose base is not 16-byte aligned
+    (scalar gathers)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = C.port(C.hpcg27(6) if case == "hpcg27" else case)
+    plan = spmm_plan(a)
+    rng = np.random.default_rng(B)
+    X = torch.as_tensor(rng.standard_normal((a.n, B)), device="cuda")
+    S = torch.as_tensor(rng.standard_normal((a.m, B)), device="cuda")
+    vals = torch.as_tensor(a.x[: a.nnz()], device="cuda")
+    vals_csr = vals[torch.as_tensor(plan.perm, device="cuda")]
+    before = spmm_csr.launches
+    got = spmm_csr(vals_csr, X, plan, sub=S)
+    torch.cuda.synchronize()
+    assert spmm_csr.launches == before + 1
+    assert tuple(got.shape) == (a.m, B) and got.dtype == torch.float64
+    assert C.rel(got, spmm_plain(vals, X, plan, sub=S)) < 1e-12
+    assert torch.equal(got, S - spmm_csr(vals_csr, X, plan))
+    if B == 128:
+        flat = S.new_zeros(a.m * B + 1, dtype=torch.float32)
+        flat[1:] = S.reshape(-1)
+        s32 = flat[1:].view(a.m, B)  # contiguous, base off by one value
+        x32, v32 = X.float(), vals.float()
+        got = spmm_csr(v32[torch.as_tensor(plan.perm, device="cuda")], x32,
+                       plan, sub=s32)
+        assert C.rel(got, spmm_plain(v32, x32, plan, sub=s32)) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["cholsol_serve", "lusol_serve"])
+def test_serve_residual_on_card(solver):
+    """A serve handle on the card makes each refinement residual B - A X in
+    one launch of the SpMM kernel's residual form: as many launches a
+    request as half its sweeps and one fewer than its readbacks. Its X
+    agrees with the handle's COO route on the CPU, and its final residual
+    is under the refinement's threshold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rsparse_tpu_torch import solve
+
+    a = C.port("lap20" if solver == "cholsol_serve" else "unsym20")
+    make = {"cholsol_serve": lambda dev: rt.cholsol_serve(a, 1, device=dev),
+            "lusol_serve": lambda dev: rt.lusol_serve(a, 1, 1e-6, device=dev)}
+    h = make[solver]("cuda")
+    B = np.random.default_rng(3).standard_normal((a.n, 128))
+    counters = lambda: np.array([spmm_csr.launches, sptrsv_multi.launches,
+                                 solve._amax.readbacks])
+    for _ in range(2):
+        before = counters()
+        X = h(B)
+        torch.cuda.synchronize()
+        resid, sweeps, reads = counters() - before
+        assert resid >= 2 and sweeps == 2 * resid and reads == resid + 1
+    assert h.last_residual <= 1e-13 * max(1.0, np.abs(B).max())
+    assert C.rel(X, make[solver]("cpu")(B)) < 1e-12
 
 
 def dia_case(m, n, offsets, dtype, seed):

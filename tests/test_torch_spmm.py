@@ -20,7 +20,10 @@ from rsparse_tpu.ops.spmm_pallas import spmm_pallas  # noqa: E402
 import torch_cases as C  # noqa: E402
 from rsparse_tpu_torch.ops import spmm_cuda as st_spmm  # noqa: E402
 from rsparse_tpu_torch.ops.spmm_cuda import (  # noqa: E402
-    spmm, spmm_csr, spmm_fn, spmm_plan, spmm_plan_cached)
+    spmm, spmm_csr, spmm_fn, spmm_plain, spmm_plan, spmm_plan_cached,
+    spmm_plan_coo)
+from rsparse_tpu_torch.ops.plan import col_ids  # noqa: E402
+from rsparse_tpu_torch.solve import _coo_amul, _sym_coo  # noqa: E402
 
 
 # (200, 150, 2600): ~2,580 entries after de-duplication, so the JAX kernel
@@ -89,6 +92,42 @@ def test_gaxpy_multi_value_errors_in_both(X, Y):
         rs.gaxpy_multi(aj, X, Y)
     with pytest.raises(ValueError):
         rt.gaxpy_multi(at, X, Y, device="cpu")
+
+
+@pytest.mark.parametrize("B", [1, 128])
+@pytest.mark.parametrize("case", ["lap12", "unsym12", "grid_ls6"])
+def test_residual_form_matches_coo_chain(case, B):
+    """The serve handles' residual S - A X on the plan of their COO (the
+    symmetrized one in AMD's order for the Laplacian, as cholsol_serve
+    builds it; the CSC entries of the nonsymmetric 5-point matrix and of a
+    rectangular least-squares matrix): the plain version's residual form
+    and the CSR copy the kernel reads (rows in pointer order, values
+    through `perm`) both equal S - `_coo_amul`(X)."""
+    a = C.port(case)
+    nz = a.nnz()
+    if case == "lap12":
+        Mi, Mj, Mx = _sym_coo(a, rt.schol(a, 1).pinv)
+    else:
+        Mi, Mj, Mx = a.i[:nz], col_ids(a.p, a.n), np.asarray(a.x[:nz])
+    plan = spmm_plan_coo(Mi, Mj, a.m, a.n)
+    rng = np.random.default_rng(B)
+    X = torch.as_tensor(rng.standard_normal((a.n, B)))
+    S = torch.as_tensor(rng.standard_normal((a.m, B)))
+    ix = lambda v: torch.as_tensor(np.asarray(v, np.int64))
+    vals = torch.as_tensor(np.asarray(Mx, np.float64))
+    want = S - _coo_amul(ix(Mi), ix(Mj), vals, a.m)(X)
+    got = spmm_plain(vals, X, plan, sub=S)
+    assert got.dtype == torch.float64 and tuple(got.shape) == (a.m, B)
+    assert C.rel(got, want) < 1e-13
+    csr_rows = np.repeat(np.arange(a.m), np.diff(plan.row_ptr))
+    R = S.numpy().copy()
+    np.subtract.at(R, csr_rows, np.asarray(Mx, np.float64)[plan.perm][:, None]
+                   * X.numpy()[plan.col_idx])
+    assert C.rel(R, want) < 1e-13
+    with pytest.raises(ValueError, match="sub must be"):
+        spmm_plain(vals, X, plan, sub=S[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_plain(vals, X, plan, sub=S.new_zeros((a.m, 2 * B))[:, :B])
 
 
 def test_cpu_path_counts_no_launch_and_fn_checks():
